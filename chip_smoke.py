@@ -4,12 +4,27 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, encodes 240 s of CD audio through the
-port's public entry on the card, decodes the stream with two independent
-decoders, and byte-compares a short clip with the numpy oracle. Every
+against its plain PyTorch version, then drives every encode path of the
+port through its public entries on the card, each at a size users run:
+
+- CD stereo, the default config (240 s), and a sigen clip against the
+  numpy oracle;
+- fixed-only mono (120 s), 24-bit / 96 kHz stereo (60 s);
+- experimental direct MSE (30 s) and IRLS (10 s), a sigen clip against
+  the oracle;
+- BitCount fixed-order selection (60 s), a sigen clip against the oracle;
+- strict mode (60 s), a sigen clip with a ragged tail against the oracle's
+  strict encoder;
+- a corpus of 8 WAV files of 30-240 s at two sample rates, each stream
+  equal to the file encoded alone;
+- the command line: encode a WAV on the card, decode it back.
+
+Every path decodes losslessly with two decoders and its MD5 matches; one
+batch of its blocks gives the same decisions on the card as on the CPU;
+and the Rice kernel's launch count equals what the config implies. Every
 failure raises; the script exits 0 only when every phase passed. Its last
 line is one JSON object naming the card; the line before it lists each
-kernel with its launches on the main path and its times.
+kernel with its launches on every path and its times.
 
 It needs a CUDA card (exits non-zero without one) and never imports JAX.
 """
@@ -21,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -74,16 +90,18 @@ def eager_ms(fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def cd_audio(seconds: int, seed: int):
-    """Interleaved 16-bit stereo at 44.1 kHz: a few seeded, slowly swelling
-    partials per channel over low-level noise."""
+def tone_audio(seconds: float, seed: int, rate: int = 44100, bps: int = 16,
+               channels: int = 2):
+    """Interleaved PCM: a few seeded, slowly swelling partials per channel
+    over low-level noise (sigma 0.004 of full scale)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n = seconds * 44100
-    t = np.arange(n, dtype=np.float64) / 44100.0
-    x = np.empty(2 * n, np.int32)
-    for ch in range(2):
+    n = int(seconds * rate)
+    t = np.arange(n, dtype=np.float64) / rate
+    full = (1 << (bps - 1)) - 1
+    x = np.empty(channels * n, np.int32)
+    for ch in range(channels):
         sig = np.zeros(n)
         for _ in range(6):
             f = rng.uniform(60.0, 4000.0)
@@ -91,7 +109,25 @@ def cd_audio(seconds: int, seed: int):
             swell = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.05, 0.5) * t)
             sig += amp * swell * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
         sig += rng.normal(0.0, 0.004, n)
-        x[ch::2] = np.clip(np.round(sig * 32767.0), -32768, 32767).astype(np.int32)
+        x[ch::channels] = np.clip(np.round(sig * full), -full - 1, full).astype(np.int32)
+    return x
+
+
+def cd_audio(seconds: int, seed: int):
+    """Interleaved 16-bit stereo at 44.1 kHz (`tone_audio`)."""
+    return tone_audio(seconds, seed)
+
+
+def sigen_clip(n: int, channels: int = 2):
+    """The sigen clip of the oracle comparisons: sines at 128 and 130 Hz."""
+    import numpy as np
+
+    from flacenc_tpu import sigen
+
+    x = np.zeros(channels * n, np.int32)
+    for ch in range(channels):
+        x[ch::channels] = sigen.Sine(128 + 2 * ch, 0.4).noise_with_seed(
+            ch + 1, 0.01).to_vec_quantized(16, n)
     return x
 
 
@@ -206,6 +242,300 @@ def check_ties(config, tbe, fixed, rice, dev):
           f"({n_ties} tied rows; ApproxEnt equal to CPU: {same})")
 
 
+def default_config():
+    """`config.Encoder()`, verified: the CLI's and the main path's config."""
+    from flacenc_tpu import config
+
+    return config.Encoder().into_verified().inner
+
+
+def rice_per_forward(cfg, block_size: int) -> int:
+    """Rice kernel launches one BatchEncoder forward makes under `cfg`: one
+    search for the ApproxEnt fixed order (one per order 0..max_order under
+    BitCount) and one for QLPC; none below the prediction minimum."""
+    from flacenc_tpu import constants
+
+    sub = cfg.subframe_coding
+    if block_size < constants.MIN_BLOCK_SIZE_FOR_PREDICTION:
+        return 0
+    fixed = 0
+    if sub.use_fixed:
+        fixed = sub.fixed.max_order + 1 if sub.fixed.order_sel.type == "BitCount" else 1
+    return fixed + (1 if sub.use_lpc else 0)
+
+
+def first_batch(x, channels: int, block_size: int, batch: int = 64):
+    """The first `batch` full blocks of interleaved `x` as (B, C, T) int32."""
+    import numpy as np
+
+    n = min(batch, len(x) // channels // block_size)
+    return x[: n * block_size * channels].reshape(n, block_size, channels) \
+        .transpose(0, 2, 1).astype(np.int32).copy()
+
+
+def check_decisions(cfg, blocks, bps: int, dev, strict: bool = False) -> None:
+    """One batch through the same BatchEncoder on the CPU and on the card
+    (the strict host arrays, when strict, given to both): the decisions
+    must be equal. This holds the Rice kernel against its plain version on
+    the path's real residuals. Launches made here are not counted."""
+    import torch
+
+    from flacenc_tpu.ops.windows import get_window
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+
+    _, C, T = blocks.shape
+    ext = ()
+    if strict:
+        window = get_window(cfg.subframe_coding.qlpc.window, T)
+        ext = tuple(torch.from_numpy(a) for a in tbe._strict_ext_arrays(blocks, cfg, C, bps, window))
+    enc = tbe.BatchEncoder(cfg, C, bps, T, strict_lpc=strict)
+    x = torch.from_numpy(blocks)
+    with torch.inference_mode():
+        cpu = enc(x, *ext)
+        gpu = enc.to(dev)(x.to(dev), *(a.to(dev) for a in ext)).cpu()
+    if not torch.equal(cpu, gpu):
+        rows = int((cpu != gpu).any(dim=1).sum())
+        raise AssertionError(f"decisions differ between the card and the CPU in {rows} blocks")
+
+
+def check_lossless(data: bytes, x, bytes_per: int, label: str) -> None:
+    """Both decoders give back `x` and the STREAMINFO MD5 is the input's."""
+    import numpy as np
+
+    from flacenc_tpu.component import decode_stream, parse_stream
+    from flacenc_tpu.native import independent
+    from flacenc_tpu.source import samples_to_le_bytes
+
+    stream = parse_stream(data)
+    if not np.array_equal(decode_stream(stream).reshape(-1), x):
+        raise AssertionError(f"{label}: component decoder: samples differ from the input")
+    ind = independent.decode_stream(data)
+    if not np.array_equal(ind.samples, x):
+        raise AssertionError(f"{label}: independent decoder: samples differ from the input")
+    md5 = hashlib.md5(samples_to_le_bytes(x, bytes_per)).digest()
+    if stream.stream_info().md5 != md5 or ind.md5 != md5:
+        raise AssertionError(f"{label}: STREAMINFO MD5 does not match the input")
+
+
+class Phases:
+    """Runs the encode paths on the card and keeps each one's Rice launches."""
+
+    def __init__(self, dev, card: str):
+        self.dev = dev
+        self.card = card
+        self.launches = {}
+
+    def stream(self, name, cfg, x, channels, bps, rate, *, block_size=4096, strict=None):
+        """Drive `encode_with_fixed_block_size` on the card once with the
+        launch count reset just before and read just after; returns the
+        stream's bytes."""
+        import flacenc_tpu_torch
+        from flacenc_tpu.source import MemSource
+        from flacenc_tpu_torch.ops import rice_tables
+
+        check_decisions(cfg, first_batch(x, channels, block_size), bps, self.dev,
+                        strict=bool(strict))
+        stats = {}
+        rice_tables.launches = 0
+        t0 = time.perf_counter()
+        stream = flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, MemSource(x, channels, bps, rate), block_size, device=self.dev,
+            stats=stats, strict_lpc=strict,
+        )
+        wall = time.perf_counter() - t0
+        launches = rice_tables.launches
+        per_forward = rice_per_forward(cfg, block_size)
+        if launches == 0 or launches != per_forward * stats["batches"]:
+            raise AssertionError(
+                f"{name}: rice_cost_tables launched {launches} times for "
+                f"{stats['batches']} batches x {per_forward} per forward"
+            )
+        data = stream.to_bytes()
+        check_lossless(data, x, -(-bps // 8), name)
+        self.report(name, len(x) / channels / rate, wall, len(data), x.size,
+                    launches, per_forward, stats)
+        return data
+
+    def report(self, name, audio_s, wall, nbytes, nvalues, launches, per_forward, stats):
+        """One JSON line of the path's numbers, beside the card's name."""
+        self.launches[name] = launches
+        print(f"{name}: " + json.dumps({
+            "audio_s": audio_s, "x_realtime": audio_s / wall, "wall_s": wall,
+            "bits_per_sample": 8 * nbytes / nvalues, "bytes": nbytes,
+            "rice_launches": launches, "rice_per_forward": per_forward,
+            "stats": stats, "card": self.card,
+        }))
+        print(f"{name}: decoded losslessly by both decoders, MD5 matches, card decisions "
+              f"== CPU decisions, launches {launches} == {per_forward} x "
+              f"{stats['batches']} batches")
+
+
+def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None:
+    """The port on the card and the numpy oracle give the same bytes."""
+    import flacenc_tpu_torch
+    from flacenc_tpu.models import reference_encoder
+    from flacenc_tpu.source import MemSource
+
+    got = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, channels, 16, 44100), block_size, device=dev, strict_lpc=strict
+    ).to_bytes()
+    oracle = reference_encoder.encode_with_fixed_block_size(
+        cfg, MemSource(x, channels, 16, 44100), block_size, strict_lpc=strict
+    ).to_bytes()
+    if got != oracle:
+        raise AssertionError(f"{label}: the port's bytes differ from the numpy oracle's")
+    n = len(x) // channels
+    print(f"oracle: {label} ({n} samples, {-(-n // block_size)} frames) byte-identical, "
+          f"sha256 {hashlib.sha256(got).hexdigest()[:16]}")
+
+
+def corpus_phase(phases: Phases, cfg, workdir: str) -> None:
+    """8 WAV files of 30-240 s at 44.1 and 48 kHz through `encode_corpus`
+    on the card; each stream equals the file encoded alone."""
+    import flacenc_tpu_torch
+    from flacenc_tpu.wav import WavFileSource, write_wav
+    from flacenc_tpu_torch.ops import rice_tables
+
+    files = [(240, 44100), (30, 48000), (95.5, 44100), (45.25, 48000),
+             (120, 44100), (61, 48000), (33.3, 44100), (180, 48000)]
+    audio = []
+    for i, (sec, rate) in enumerate(files):
+        x = tone_audio(sec, seed=100 + i, rate=rate)
+        path = os.path.join(workdir, f"track{i:02d}.wav")
+        write_wav(path, x, 2, 16, rate)
+        audio.append((path, x))
+    check_decisions(cfg, first_batch(audio[0][1], 2, 4096), 16, phases.dev)
+    sources = [(path, WavFileSource(path)) for path, _ in audio]
+    rice_tables.launches = 0
+    t0 = time.perf_counter()
+    streams, stats = flacenc_tpu_torch.encode_corpus(sources, cfg, 4096, device=phases.dev)
+    wall = time.perf_counter() - t0
+    launches = rice_tables.launches
+    per_forward = rice_per_forward(cfg, 4096)
+    if launches == 0 or launches != per_forward * stats.batches:
+        raise AssertionError(f"corpus: {launches} launches for {stats.batches} batches")
+    nbytes = 0
+    for path, x in audio:
+        data = streams[path].to_bytes()
+        alone = flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, WavFileSource(path), 4096, device=phases.dev
+        ).to_bytes()
+        if data != alone:
+            raise AssertionError(f"corpus: {path} differs from the file encoded alone")
+        check_lossless(data, x, 2, f"corpus {os.path.basename(path)}")
+        nbytes += len(data)
+    audio_s = sum(x.size / 2 / rate for (_, x), (_, rate) in zip(audio, files))
+    phases.report("corpus", audio_s, wall, nbytes, sum(x.size for _, x in audio), launches,
+                  per_forward, vars(stats))
+    print(f"corpus: {len(files)} files, each stream byte-identical to the file encoded alone")
+
+
+def cli_phase(phases: Phases, workdir: str, extra_args=()) -> None:
+    """`encode` through the port's command line on the card, `decode` back."""
+    import numpy as np
+
+    from flacenc_tpu.wav import read_wav, write_wav
+    from flacenc_tpu_torch import cli
+    from flacenc_tpu_torch.ops import rice_tables
+
+    x = tone_audio(30, seed=7)
+    wav = os.path.join(workdir, "cli_in.wav")
+    flac = os.path.join(workdir, "cli_out.flac")
+    back = os.path.join(workdir, "cli_back.wav")
+    write_wav(wav, x, 2, 16, 44100)
+    check_decisions(default_config(), first_batch(x, 2, 4096), 16, phases.dev)
+    rice_tables.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["encode", wav, "-o", flac, *extra_args])
+    wall = time.perf_counter() - t0
+    launches = rice_tables.launches
+    if rc != 0:
+        raise AssertionError(f"cli encode exited {rc}")
+    batches = -(-(len(x) // 2 // 4096) // 64)
+    per_forward = rice_per_forward(default_config(), 4096)
+    if launches != per_forward * batches:
+        raise AssertionError(f"cli: {launches} launches for {batches} batches")
+    if cli.main(["decode", flac, "-o", back]) != 0:
+        raise AssertionError("cli decode failed")
+    samples, channels, bps, rate = read_wav(back)
+    if (channels, bps, rate) != (2, 16, 44100) or not np.array_equal(samples, x):
+        raise AssertionError("cli: the decoded WAV differs from the input")
+    with open(flac, "rb") as f:
+        data = f.read()
+    check_lossless(data, x, 2, "cli")
+    phases.report("cli", x.size / 2 / 44100, wall, len(data), x.size, launches, per_forward,
+                  {"batches": batches})
+
+
+def run_paths(phases: Phases, cli_args=()) -> None:
+    """Every encode path of the port, through its public entries, on
+    `phases.dev`, each checked as the module docstring says."""
+    import numpy as np
+
+    import flacenc_tpu_torch
+    from flacenc_tpu import config, sigen
+    from flacenc_tpu.config import Window
+    from flacenc_tpu.source import MemSource
+
+    dev = phases.dev
+    default = default_config()
+    flacenc_tpu_torch.encode_with_fixed_block_size(  # warm-up: CUDA context, lib load
+        default, MemSource(cd_audio(10, seed=1), 2, 16, 44100), 4096, device=dev
+    )
+
+    # 4. the main path: 240 s of 16-bit / 44.1 kHz stereo on the card
+    phases.stream("main path", default, cd_audio(240, seed=0), 2, 16, 44100)
+
+    # 5. against the numpy oracle: 8 full blocks plus a ragged tail
+    oracle_equal(dev, "sigen stereo clip", default, sigen_clip(8 * 4096 + 1234), 2, 4096)
+
+    # 6. fixed-only mono, 16-bit / 44.1 kHz
+    fixed_only = config.Encoder()
+    fixed_only.subframe_coding.use_lpc = False
+    phases.stream("fixed-only mono", fixed_only.into_verified().inner,
+                  tone_audio(120, seed=11, channels=1), 1, 16, 44100)
+
+    # 7. hi-res: 24-bit / 96 kHz stereo
+    phases.stream("hi-res 24/96", default, tone_audio(60, seed=12, rate=96000, bps=24),
+                  2, 24, 96000)
+
+    # 8. experimental: direct MSE, then IRLS with 2 steps
+    dmse = config.Encoder()
+    dmse.subframe_coding.qlpc.use_direct_mse = True
+    phases.stream("direct MSE", dmse.into_verified().inner, cd_audio(30, seed=13), 2, 16, 44100)
+    irls = config.Encoder()
+    irls.subframe_coding.qlpc.use_direct_mse = True
+    irls.subframe_coding.qlpc.mae_optimization_steps = 2
+    phases.stream("IRLS 2 steps", irls.into_verified().inner, cd_audio(10, seed=14),
+                  2, 16, 44100)
+    exp_oracle = config.Encoder()  # the config and signal of tests/test_experimental.py:86
+    exp_oracle.subframe_coding.qlpc.use_direct_mse = True
+    exp_oracle.subframe_coding.qlpc.window = Window.rectangle()
+    n = 1024 * 2 + 100
+    clip = np.zeros(2 * n, np.int32)
+    clip[0::2] = sigen.Sine(90, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
+    clip[1::2] = sigen.Sine(91, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
+    oracle_equal(dev, "direct MSE sigen clip", exp_oracle.into_verified().inner, clip, 2, 1024)
+
+    # 9. BitCount fixed-order selection on CD stereo
+    bitcount = config.Encoder()
+    bitcount.subframe_coding.fixed.order_sel = config.OrderSel(type="BitCount")
+    bitcount = bitcount.into_verified().inner
+    phases.stream("BitCount", bitcount, cd_audio(60, seed=15), 2, 16, 44100)
+    oracle_equal(dev, "BitCount sigen clip", bitcount, sigen_clip(8 * 4096 + 1234), 2, 4096)
+
+    # 10. strict mode on CD stereo
+    phases.stream("strict", default, cd_audio(60, seed=16), 2, 16, 44100, strict=True)
+    oracle_equal(dev, "strict sigen clip", default, sigen_clip(8 * 4096 + 2345), 2, 4096,
+                 strict=True)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        # 11. a corpus of WAV files at two sample rates
+        corpus_phase(phases, default, workdir)
+        # 12. the command line
+        cli_phase(phases, workdir, cli_args)
+
+
 def main() -> int:
     import torch
 
@@ -214,21 +544,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
-
-    from flacenc_tpu import config, sigen
-    from flacenc_tpu.component import decode_stream, parse_stream
-    from flacenc_tpu.models import reference_encoder
-    from flacenc_tpu.native import independent
-    from flacenc_tpu.source import MemSource, samples_to_le_bytes
-
-    import flacenc_tpu_torch
+    from flacenc_tpu import config
     from flacenc_tpu_torch.csrc import build as kbuild
     from flacenc_tpu_torch.models import batch_encoder as tbe
     from flacenc_tpu_torch.ops import fixed, rice, rice_tables
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    t_all = time.perf_counter()
     # 1. card
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -250,70 +573,20 @@ def main() -> int:
     )
     check_ties(config, tbe, fixed, rice, dev)
 
-    # 4. the main path: 240 s of 16-bit / 44.1 kHz stereo on the card
-    cfg = config.Encoder().into_verified()
-    flacenc_tpu_torch.encode_with_fixed_block_size(  # warm-up: CUDA context, lib load
-        cfg, MemSource(cd_audio(10, seed=1), 2, 16, 44100), 4096, device="cuda"
-    )
-    seconds = 240
-    x = cd_audio(seconds, seed=0)
-    torch.cuda.synchronize()
-    rice_tables.launches = 0
-    stats = {}
-    t0 = time.perf_counter()
-    stream = flacenc_tpu_torch.encode_with_fixed_block_size(
-        cfg, MemSource(x, 2, 16, 44100), 4096, device="cuda", stats=stats
-    )
-    wall = time.perf_counter() - t0
-    launches = rice_tables.launches
-    data = stream.to_bytes()
-    if launches == 0 or launches != 2 * stats["batches"]:
-        raise AssertionError(
-            f"rice_cost_tables launched {launches} times for {stats['batches']} batches"
-        )
-    decoded = decode_stream(parse_stream(data))
-    if not np.array_equal(decoded, x):
-        raise AssertionError("component decoder: samples differ from the input")
-    ind = independent.decode_stream(data)
-    if not np.array_equal(ind.samples, x):
-        raise AssertionError("independent decoder: samples differ from the input")
-    md5 = hashlib.md5(samples_to_le_bytes(x, 2)).digest()
-    if stream.stream_info().md5 != md5 or ind.md5 != md5:
-        raise AssertionError("STREAMINFO MD5 does not match the input")
-    bits_per_sample = 8 * len(data) / x.size
-    print("main path: " + json.dumps({
-        "audio_s": seconds, "x_realtime": seconds / wall, "wall_s": wall,
-        "bits_per_sample": bits_per_sample, "bytes": len(data),
-        "rice_launches": launches, "stats": stats, "card": card,
-    }))
-    print("main path: decoded losslessly by both decoders, MD5 matches, "
-          f"launches {launches} == 2 x {stats['batches']} batches")
-
-    # 5. against the numpy oracle: 8 full blocks plus a ragged tail
-    n = 8 * 4096 + 1234
-    clip = np.zeros(2 * n, np.int32)
-    clip[0::2] = sigen.Sine(128, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
-    clip[1::2] = sigen.Sine(130, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
-    got = flacenc_tpu_torch.encode_with_fixed_block_size(
-        cfg, MemSource(clip, 2, 16, 44100), 4096, device="cuda"
-    ).to_bytes()
-    oracle = reference_encoder.encode_with_fixed_block_size(
-        cfg, MemSource(clip, 2, 16, 44100), 4096
-    ).to_bytes()
-    if got != oracle:
-        raise AssertionError("sigen clip: the port's bytes differ from the numpy oracle's")
-    print(f"oracle: sigen stereo clip ({n} samples, 9 frames) byte-identical, "
-          f"sha256 {hashlib.sha256(got).hexdigest()[:16]}")
+    phases = Phases(dev, card)
+    run_paths(phases)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    # 6. kernels, then the result
+    print(f"all phases passed in {time.perf_counter() - t_all:.1f} s ({card})")
+    # 13. kernels, then the result
     print(json.dumps({"kernels": [{
         "name": "rice_cost_tables",
         "route": "cuda",
         "source": "flacenc_tpu_torch/csrc/rice_tables.cu",
         "replaces": "flacenc_tpu/ops/pallas_rice.py:74",
-        "launches": launches,
+        "launches": sum(phases.launches.values()),
+        "launches_by_path": phases.launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1,9 +1,11 @@
-"""Host pack-thread count (port of ``flacenc_tpu.parallel.determine_worker_count``).
+"""Host parallelism of the port (counterpart of ``flacenc_tpu.parallel``).
 
-``flacenc_tpu.parallel`` imports its JAX mesh module on import, so the port
-keeps its own copy of this one function and always hands the native packer
-an explicit thread count (the packer resolves a count < 1 through that
-package).
+`determine_worker_count` is the host pack-thread count: ``flacenc_tpu.
+parallel`` imports its JAX mesh module on import, so the port keeps its own
+copy of this one function and always hands the native packer an explicit
+thread count (the packer resolves a count < 1 through that package).
+`encode_corpus` (``pipeline.py``) encodes many sources through shared
+device batches.
 """
 
 from __future__ import annotations
@@ -31,3 +33,10 @@ def determine_worker_count(cfg=None) -> int:
         if n >= 1:
             return n
     return os.cpu_count() or 1
+
+
+# after determine_worker_count: pipeline imports the batch encoder, which
+# imports this package for it
+from .pipeline import PipelineStats, encode_corpus  # noqa: E402
+
+__all__ = ["PipelineStats", "determine_worker_count", "encode_corpus"]

@@ -96,20 +96,101 @@ def test_split_decisions_roundtrip():
 
 
 @pytest.mark.parametrize("variant", [
-    {"strict_lpc": True}, {"decisions_only": False}, {"wire_encoded": True},
-    {"packed_wire": ("d", 2)}, {"grouped": 4}, "bitcount", "direct_mse",
+    {"decisions_only": False}, {"wire_encoded": True},
+    {"packed_wire": ("d", 2)}, {"grouped": 4},
 ])
 def test_unported_variants_raise(variant):
-    cfg = config.Encoder()
-    kwargs = {}
-    if variant == "bitcount":
-        cfg.subframe_coding.fixed.order_sel = config.OrderSel(type="BitCount")
-    elif variant == "direct_mse":
-        cfg.subframe_coding.qlpc.use_direct_mse = True
-    else:
-        kwargs = variant
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbe.BatchEncoder(cfg, 2, 16, T, **kwargs)
+        tbe.BatchEncoder(config.Encoder(), 2, 16, T, **variant)
+
+
+def _set(path, value):
+    def apply(cfg):
+        *head, last = path.split(".")
+        obj = cfg
+        for name in head:
+            obj = getattr(obj, name)
+        setattr(obj, last, value)
+    return apply
+
+
+# config branches of the device program, each held against JAX: subframe
+# types and stereo modes turned off, low fixed orders, BitCount, 3-8
+# channels, and block sizes from the too-short path (< 64) to 32767
+_BRANCHES = {
+    "bitcount": ([_set("subframe_coding.fixed.order_sel", config.OrderSel(type="BitCount"))], 2, 1024, 4),
+    "bitcount_max_order_2": ([_set("subframe_coding.fixed.order_sel", config.OrderSel(type="BitCount")),
+                              _set("subframe_coding.fixed.max_order", 2)], 1, 1024, 4),
+    "no_fixed": ([_set("subframe_coding.use_fixed", False)], 2, 1024, 4),
+    "no_lpc": ([_set("subframe_coding.use_lpc", False)], 2, 1024, 4),
+    "no_constant": ([_set("subframe_coding.use_constant", False)], 2, 1024, 4),
+    "no_ls_ms": ([_set("stereo_coding.use_leftside", False),
+                  _set("stereo_coding.use_midside", False)], 2, 1024, 4),
+    "no_stereo_modes": ([_set("stereo_coding.use_leftside", False),
+                         _set("stereo_coding.use_rightside", False),
+                         _set("stereo_coding.use_midside", False)], 2, 1024, 4),
+    "fixed_max_order_0": ([_set("subframe_coding.fixed.max_order", 0)], 1, 1024, 4),
+    "fixed_max_order_3_no_lpc": ([_set("subframe_coding.fixed.max_order", 3),
+                                  _set("subframe_coding.use_lpc", False)], 1, 1024, 4),
+    "3_channels": ([], 3, 1024, 4),
+    "8_channels": ([], 8, 256, 2),
+    "block_32_too_short": ([], 2, 32, 8),
+    "block_63_too_short": ([], 1, 63, 8),
+    "block_64": ([], 2, 64, 8),
+    "block_4095": ([], 2, 4095, 2),
+    "block_32767": ([], 1, 32767, 2),
+}
+
+
+@pytest.mark.parametrize("branch", list(_BRANCHES))
+def test_config_branch_decisions_match_jax(branch):
+    edits, C, T_, B_ = _BRANCHES[branch]
+    cfg = config.Encoder()
+    for edit in edits:
+        edit(cfg)
+    cfg = cfg.into_verified().inner
+    blocks = _sigen_blocks(C, 16, n_blocks=B_, block=T_)
+    if T_ == 1024:
+        # a constant channel. Its (unused) LPC coefficients come from a
+        # near-singular solve and may differ in the last float64 bits
+        # between XLA and torch; at this size they quantize alike.
+        blocks[0, 0] = 77
+    got, exp = _decisions_both(cfg, blocks, 16)
+    assert got.shape == exp.shape and np.array_equal(got, exp)
+    dec = tbe.split_decisions(got, C)
+    kinds = set(np.unique(dec.sf_type).tolist())
+    sub = cfg.subframe_coding
+    if T_ < 64:
+        assert kinds <= {tbe.T_CONSTANT, tbe.T_VERBATIM}
+    if not sub.use_lpc or T_ < 64:
+        assert tbe.T_LPC not in kinds
+    if not sub.use_fixed:
+        assert tbe.T_FIXED not in kinds
+    if not sub.use_constant:
+        assert tbe.T_CONSTANT not in kinds
+    assert np.all(dec.order[dec.sf_type == tbe.T_FIXED] <= sub.fixed.max_order)
+    if C == 2:
+        st = cfg.stereo_coding
+        allowed = {0} | {code for flag, code in ((st.use_leftside, 1), (st.use_rightside, 2),
+                                                 (st.use_midside, 3)) if flag}
+        assert set(dec.assign.tolist()) <= allowed
+
+
+def test_bitcount_launches_a_rice_search_per_order():
+    """BitCount runs a full Rice search for every fixed order plus one for
+    LPC: the Rice table wrapper is called max_order + 2 times per forward."""
+    from flacenc_tpu_torch.ops import rice_tables
+
+    cfg = config.Encoder()
+    cfg.subframe_coding.fixed.order_sel = config.OrderSel(type="BitCount")
+    calls = []
+    plain = rice_tables.rice_cost_tables_plain
+    try:
+        rice_tables.rice_cost_tables_plain = lambda *a: calls.append(1) or plain(*a)
+        tbe.BatchEncoder(cfg, 2, 16, T)(torch.from_numpy(_sigen_blocks(2, 16, n_blocks=2)))
+    finally:
+        rice_tables.rice_cost_tables_plain = plain
+    assert len(calls) == cfg.subframe_coding.fixed.max_order + 2
 
 
 def _stereo(n, bps=16):

@@ -1,5 +1,7 @@
 """Card-only checks of the port: the CUDA Rice kernel against its plain
-PyTorch version, and the whole device program on CUDA against the CPU.
+PyTorch version, and the whole device program on CUDA against the CPU on
+every path (mono, stereo, 24-bit, fixed-only, BitCount, strict, direct MSE
+and IRLS).
 
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 from flacenc_tpu import config, sigen  # noqa: E402
 from flacenc_tpu.source import MemSource  # noqa: E402
 from flacenc_tpu.models import reference_encoder  # noqa: E402
+from flacenc_tpu.ops.windows import get_window  # noqa: E402
 
 import flacenc_tpu_torch  # noqa: E402
 from flacenc_tpu_torch.models import batch_encoder as tbe  # noqa: E402
@@ -60,19 +63,45 @@ def test_kernel_saturation_and_int32_limits(cuda):
     _kernel_vs_plain(errors, np.array([[0], [0], [24]], np.int32), cuda)
 
 
-@pytest.mark.parametrize("C,bps", [(1, 16), (2, 16), (2, 24)])
-def test_decisions_match_cpu(cuda, C, bps):
+def _bitcount(c):
+    c.subframe_coding.fixed.order_sel = config.OrderSel(type="BitCount")
+
+
+def _fixed_only(c):
+    c.subframe_coding.use_lpc = False
+
+
+def _direct_mse(steps):
+    def edit(c):
+        c.subframe_coding.qlpc.use_direct_mse = True
+        c.subframe_coding.qlpc.mae_optimization_steps = steps
+    return edit
+
+
+@pytest.mark.parametrize("C,bps,edit,strict", [
+    (1, 16, None, False), (2, 16, None, False), (2, 24, None, False),
+    (1, 16, _fixed_only, False), (2, 16, _bitcount, False), (2, 16, None, True),
+    (2, 16, _direct_mse(0), False), (2, 16, _direct_mse(2), False),
+], ids=["mono", "stereo", "stereo24", "mono_fixed_only", "bitcount", "strict",
+        "direct_mse", "irls"])
+def test_decisions_match_cpu(cuda, C, bps, edit, strict):
     n = 8 * 1024
     chans = [
         sigen.Sine(128 + 9 * c, 0.4).noise_with_seed(c + 1, 0.01).to_vec_quantized(bps, n)
         for c in range(C)
     ]
-    blocks = torch.from_numpy(
-        np.stack(chans).reshape(C, 8, 1024).transpose(1, 0, 2).copy().astype(np.int32)
-    )
-    enc = tbe.BatchEncoder(config.Encoder(), C, bps, 1024)
-    cpu = enc(blocks)
-    gpu = enc.to(cuda)(blocks.to(cuda)).cpu()
+    blocks = np.stack(chans).reshape(C, 8, 1024).transpose(1, 0, 2).copy().astype(np.int32)
+    cfg = config.Encoder()
+    if edit is not None:
+        edit(cfg)
+    ext = ()
+    if strict:
+        window = get_window(cfg.subframe_coding.qlpc.window, 1024)
+        ext = tuple(map(torch.from_numpy, tbe._strict_ext_arrays(blocks, cfg, C, bps, window)))
+    enc = tbe.BatchEncoder(cfg, C, bps, 1024, strict_lpc=strict)
+    x = torch.from_numpy(blocks)
+    cpu = enc(x, *ext)
+    gpu = enc.to(cuda)(x.to(cuda), *(a.to(cuda) for a in ext)).cpu()
     assert torch.equal(cpu, gpu)
 
 
@@ -89,3 +118,26 @@ def test_stream_matches_oracle(cuda):
         cfg, MemSource(x, 2, 16, 44100), 4096
     ).to_bytes()
     assert got == oracle
+
+
+def test_strict_stream_and_corpus_on_card(cuda):
+    """Strict bytes equal the oracle's strict bytes; a corpus stream equals
+    the file encoded alone, on the card."""
+    n = 8 * 4096 + 1234
+    x = np.zeros(2 * n, np.int32)
+    x[0::2] = sigen.Sine(128, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
+    x[1::2] = sigen.Sine(130, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
+    cfg = config.Encoder().into_verified()
+    got = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, device="cuda", strict_lpc=True
+    ).to_bytes()
+    assert got == reference_encoder.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, strict_lpc=True
+    ).to_bytes()
+    streams, _ = flacenc_tpu_torch.encode_corpus(
+        [("a", MemSource(x, 2, 16, 44100)), ("b", MemSource(x[: 2 * 5000], 2, 16, 48000))],
+        cfg, 4096, batch_size=8, device="cuda",
+    )
+    assert streams["a"].to_bytes() == flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, device="cuda"
+    ).to_bytes()

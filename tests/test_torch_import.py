@@ -27,6 +27,13 @@ s = flacenc_tpu_torch.encode_with_fixed_block_size(
     config.Encoder().into_verified(), MemSource(x, 2, 16, 44100), 1024, device="cpu"
 )
 assert s.frame_count() == 3
+import flacenc_tpu_torch.cli
+import flacenc_tpu_torch.parallel
+streams, _ = flacenc_tpu_torch.encode_corpus(
+    [("a", MemSource(x, 2, 16, 44100))], config.Encoder(), 1024, device="cpu",
+    strict_lpc=True,
+)
+assert streams["a"].frame_count() == 3
 print("JAX_LOADED" if "jax" in sys.modules else "JAX_ABSENT")
 """
 
@@ -35,6 +42,26 @@ def test_import_and_cpu_encode_leave_jax_out():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "JAX_ABSENT"
+
+
+def test_cli_encode_and_decode_leave_jax_out(tmp_path):
+    probe = (
+        "import sys, numpy as np\n"
+        "from flacenc_tpu.wav import write_wav\n"
+        "from flacenc_tpu_torch import cli\n"
+        "x = np.arange(-3000, 3000, dtype=np.int32)\n"
+        "write_wav('in.wav', x, 2, 16, 44100)\n"
+        "assert cli.main(['encode', 'in.wav', '-o', 'o.flac', '--cpu-only']) == 0\n"
+        "assert cli.main(['decode', 'o.flac', '-o', 'back.wav']) == 0\n"
+        "print('JAX_LOADED' if 'jax' in sys.modules else 'JAX_ABSENT')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=str(tmp_path), env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
