@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, then drives every encode path of the
-port through its public entries on the card, each at a size users run:
+Builds the port's CUDA kernels from the sources in this checkout, holds
+them against their plain PyTorch version and times the Rice cost-table
+kernel at the main path's shape, L2-warm and L2-cold, beside its bound.
+Then it drives every encode path of the port through its public entries on
+the card, each at a size users run:
 
 - CD stereo, the default config (240 s), and a sigen clip against the
   numpy oracle;
@@ -26,12 +28,17 @@ failure raises; the script exits 0 only when every phase passed. Its last
 line is one JSON object naming the card; the line before it lists each
 kernel with its launches on every path and its times.
 
-It needs a CUDA card (exits non-zero without one) and never imports JAX.
+It needs a CUDA card (exits non-zero without one) and imports neither JAX
+nor the JAX package. `--kernel-only` stops after the kernel checks;
+`--compare-with OLD.cu` also times a kernel built from another source of
+``csrc/rice_tables.cu`` (the first kernel's C entry) against this one, in
+turns.
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -74,6 +81,13 @@ def cuda_ms(fn, iters: int = 20, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * iters)
+
+
+def cuda_ms_rotating(fns, reps: int = 10) -> float:
+    """Device time of one call in ms, each of `fns` called once in turn per
+    captured round (as `cuda_ms`, with the round replayed `reps` times)."""
+    calls = itertools.cycle(fns)
+    return cuda_ms(lambda: next(calls)(), iters=2 * len(fns), reps=reps)
 
 
 def eager_ms(fn, iters: int = 200) -> float:
@@ -122,7 +136,7 @@ def sigen_clip(n: int, channels: int = 2):
     """The sigen clip of the oracle comparisons: sines at 128 and 130 Hz."""
     import numpy as np
 
-    from flacenc_tpu import sigen
+    from flacenc_tpu_torch import sigen
 
     x = np.zeros(channels * n, np.int32)
     for ch in range(channels):
@@ -131,11 +145,11 @@ def sigen_clip(n: int, channels: int = 2):
     return x
 
 
-def check_kernel(rice_tables, finest_partition_order, dev):
-    """Kernel == plain on the card, exactly, at every listed shape; returns
-    (max_abs_err, kernel_ms, plain_ms) with times at the main-path shape."""
+def kernel_cases():
+    """(name, errors (B, K, T) int32, warmup (B, K) int32) on which the kernel
+    must equal its plain version: the main path's shape first, the other
+    partition layouts, every warmup, saturation and residuals near +-2^31."""
     import numpy as np
-    import torch
 
     rng = np.random.default_rng(7)
     cases = []
@@ -157,33 +171,147 @@ def check_kernel(rice_tables, finest_partition_order, dev):
     near[0, 0, 70] = np.iinfo(np.int32).min
     near[1, 0] = rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max, 1024)
     add("near +-2^31", near, np.array([[0], [3]]))
+    return cases
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, the published rate at 700 W
+INT_OPS_PER_S = 67e12  # the published float32 rate outside the tensor cores
+
+
+def kernel_bound_ms(rows: int, T: int, finest: int) -> float:
+    """Least time of one call on an H100: the larger of its bytes (residuals
+    and warmups read once, tables written once) over the memory rate and its
+    operations (a shift and an add for every sample and p) over the
+    non-tensor rate."""
+    nbytes = rows * T * 4 + rows * 4 + rows * (1 << finest) * 32 * 4
+    ops = 2 * 32 * rows * T
+    return max(nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S) * 1e3
+
+
+def cold_inputs(errors, warmup, n: int = 16):
+    """`n` copies of the inputs on the card, together larger than the 50 MB
+    L2, so that a launch on each in turn finds its input in device memory."""
+    import torch
+
+    copies = [(errors.clone(), warmup.clone()) for _ in range(n)]
+    total = n * (errors.numel() * 4 + warmup.numel() * 4)
+    if total <= 50e6:
+        raise ValueError(f"{n} input copies hold {total} bytes, not more than the L2")
+    torch.cuda.synchronize()
+    return copies
+
+
+def check_kernel(rice_tables, finest_partition_order, dev):
+    """Kernel == plain on the card, exactly, on every `kernel_cases` case;
+    then the kernel's times at the main-path shape (B*K = 256, T = 4096),
+    L2-warm (one input) and L2-cold (16 inputs in turn), beside its bound
+    and the plain version's time. Returns a dict of the numbers."""
+    import torch
 
     max_err = 0
-    for name, errors, warmup in cases:
+    for name, errors, warmup in kernel_cases():
         T = errors.shape[-1]
         finest = finest_partition_order(T, 64)
         e = torch.from_numpy(errors).to(dev)
         w = torch.from_numpy(warmup).to(dev)
+        plan = rice_tables.launch_plan(T, finest, e.data_ptr())
         got = rice_tables.rice_cost_tables(e, w, finest)
         torch.cuda.synchronize()
         exp = rice_tables.rice_cost_tables_plain(e, w, finest)
         err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
-        print(f"kernel vs plain: {name}: finest={finest} max_abs_err={err}")
+        print(f"kernel vs plain: {name}: finest={finest} {plan} max_abs_err={err}")
         if err or not torch.equal(got, exp):
             raise AssertionError(f"rice_cost_tables differs from its plain version: {name}")
         max_err = max(max_err, err)
 
-    _, errors, warmup = cases[0]  # (64, 4, 4096): the main path's shape
+    _, errors, warmup = kernel_cases()[0]  # (64, 4, 4096): the main path's shape
     e = torch.from_numpy(errors).to(dev)
     w = torch.from_numpy(warmup).to(dev)
+    if rice_tables.launch_plan(4096, 6, e.data_ptr()).kernel != "mma":
+        raise AssertionError("the main path's shape does not take the tensor-core kernel")
+    copies = cold_inputs(e, w)
     kernel = lambda: rice_tables.rice_cost_tables(e, w, 6)  # noqa: E731
     plain = lambda: rice_tables.rice_cost_tables_plain(e, w, 6)  # noqa: E731
-    kernel_ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    print(f"rice_cost_tables at B*K=256 T=4096, device time (CUDA graph replay, "
-          f"L2-warm): kernel {kernel_ms} ms, plain {plain_ms} ms; eager with host "
-          f"launch: kernel {eager_ms(kernel)} ms, plain {eager_ms(plain)} ms "
-          f"({card_line()})")
-    return max_err, kernel_ms, plain_ms
+    cold = [lambda a=a, b=b: rice_tables.rice_cost_tables(a, b, 6) for a, b in copies]
+    lib = rice_tables._load()
+    out = torch.empty((64, 4, 64, 32), dtype=torch.int32, device=dev)
+
+    def transpose():  # the other kernel, at the main path's shape
+        rc = lib.flacenc_rice_cost_tables_transpose(
+            e.data_ptr(), w.data_ptr(), out.data_ptr(), 256, 4096, 6,
+            rice_tables.launch_plan(4096, 6, 4).parts_per_block,  # its plan for this shape
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"transpose kernel launch failed: {rc}")
+
+    transpose()
+    if not torch.equal(out, plain()):
+        raise AssertionError("the transpose kernel differs from the plain version")
+    times = {
+        "ms": cuda_ms(kernel),
+        "cold_ms": cuda_ms_rotating(cold),
+        "plain_ms": cuda_ms(plain),
+        "transpose_ms": cuda_ms(transpose),
+    }
+    bound = kernel_bound_ms(256, 4096, 6)
+    times.update(max_abs_err=max_err, bound_ms=bound, bound_by="bytes",
+                 share_warm=bound / times["ms"], share_cold=bound / times["cold_ms"])
+    print(f"rice_cost_tables at B*K=256 T=4096 (CUDA graph replay): L2-warm "
+          f"{times['ms']} ms, L2-cold {times['cold_ms']} ms, bound {bound} ms (bytes), "
+          f"share of bound warm {times['share_warm']} cold {times['share_cold']}; "
+          f"plain {times['plain_ms']} ms; the transpose kernel at this shape "
+          f"{times['transpose_ms']} ms; eager with host launch: kernel "
+          f"{eager_ms(kernel)} ms ({card_line()})")
+    return times
+
+
+def compare_with(path: str, dev, rounds: int = 3) -> dict:
+    """Times the kernel built from another source of ``csrc/rice_tables.cu``
+    (the first kernel's C entry: errors, warmup, out, rows, block size,
+    finest order, stream) against this checkout's, in turns (old, new, new,
+    old, ...), L2-warm and L2-cold, at the main-path shape; both must give
+    the same tables."""
+    import ctypes
+    import torch
+
+    from flacenc_tpu_torch.csrc import build as kbuild
+    from flacenc_tpu_torch.ops import rice_tables
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        lib_path = os.path.join(out_dir, "librice_old.so")
+        subprocess.run([kbuild.find_nvcc(), *kbuild.NVCC_FLAGS, "-o", lib_path, path],
+                       check=True, capture_output=True, text=True)
+        old = ctypes.CDLL(lib_path)  # stays loaded after its file is removed
+    old.flacenc_rice_cost_tables.restype = ctypes.c_int
+    old.flacenc_rice_cost_tables.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+
+    _, errors, warmup = kernel_cases()[0]
+    e = torch.from_numpy(errors).to(dev)
+    w = torch.from_numpy(warmup).to(dev)
+    copies = cold_inputs(e, w)
+
+    def run_old(a, b):
+        out = torch.empty((64, 4, 64, 32), dtype=torch.int32, device=dev)
+        rc = old.flacenc_rice_cost_tables(a.data_ptr(), b.data_ptr(), out.data_ptr(), 256,
+                                          4096, 6, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old kernel launch failed: {rc}")
+        return out
+
+    new_out = rice_tables.rice_cost_tables(e, w, 6)
+    if not torch.equal(run_old(e, w), new_out):
+        raise AssertionError("the old and the new kernel give different tables")
+    result = {"old_ms": [], "new_ms": [], "old_cold_ms": [], "new_cold_ms": []}
+    for i in range(2 * rounds):
+        order = ("old", "new") if i % 2 == 0 else ("new", "old")
+        for which in order:
+            fn = run_old if which == "old" else (lambda a, b: rice_tables.rice_cost_tables(a, b, 6))
+            result[f"{which}_ms"].append(cuda_ms(lambda: fn(e, w)))
+            result[f"{which}_cold_ms"].append(
+                cuda_ms_rotating([lambda a=a, b=b: fn(a, b) for a, b in copies]))
+    print("kernel comparison (old source " + path + "): " + json.dumps(result) + f" ({card_line()})")
+    return result
 
 
 def check_ties(config, tbe, fixed, rice, dev):
@@ -191,7 +319,7 @@ def check_ties(config, tbe, fixed, rice, dev):
     import numpy as np
     import torch
 
-    from flacenc_tpu import sigen
+    from flacenc_tpu_torch import sigen
 
     # stereo mode: L == R makes LS, RS and MS cost the same -> LS (code 1)
     n = 8 * 1024
@@ -244,7 +372,7 @@ def check_ties(config, tbe, fixed, rice, dev):
 
 def default_config():
     """`config.Encoder()`, verified: the CLI's and the main path's config."""
-    from flacenc_tpu import config
+    from flacenc_tpu_torch import config
 
     return config.Encoder().into_verified().inner
 
@@ -253,7 +381,7 @@ def rice_per_forward(cfg, block_size: int) -> int:
     """Rice kernel launches one BatchEncoder forward makes under `cfg`: one
     search for the ApproxEnt fixed order (one per order 0..max_order under
     BitCount) and one for QLPC; none below the prediction minimum."""
-    from flacenc_tpu import constants
+    from flacenc_tpu_torch import constants
 
     sub = cfg.subframe_coding
     if block_size < constants.MIN_BLOCK_SIZE_FOR_PREDICTION:
@@ -280,7 +408,7 @@ def check_decisions(cfg, blocks, bps: int, dev, strict: bool = False) -> None:
     the path's real residuals. Launches made here are not counted."""
     import torch
 
-    from flacenc_tpu.ops.windows import get_window
+    from flacenc_tpu_torch.ops.windows import get_window
     from flacenc_tpu_torch.models import batch_encoder as tbe
 
     _, C, T = blocks.shape
@@ -302,9 +430,9 @@ def check_lossless(data: bytes, x, bytes_per: int, label: str) -> None:
     """Both decoders give back `x` and the STREAMINFO MD5 is the input's."""
     import numpy as np
 
-    from flacenc_tpu.component import decode_stream, parse_stream
-    from flacenc_tpu.native import independent
-    from flacenc_tpu.source import samples_to_le_bytes
+    from flacenc_tpu_torch.component import decode_stream, parse_stream
+    from flacenc_tpu_torch.native import independent
+    from flacenc_tpu_torch.source import samples_to_le_bytes
 
     stream = parse_stream(data)
     if not np.array_equal(decode_stream(stream).reshape(-1), x):
@@ -330,7 +458,7 @@ class Phases:
         launch count reset just before and read just after; returns the
         stream's bytes."""
         import flacenc_tpu_torch
-        from flacenc_tpu.source import MemSource
+        from flacenc_tpu_torch.source import MemSource
         from flacenc_tpu_torch.ops import rice_tables
 
         check_decisions(cfg, first_batch(x, channels, block_size), bps, self.dev,
@@ -373,8 +501,8 @@ class Phases:
 def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None:
     """The port on the card and the numpy oracle give the same bytes."""
     import flacenc_tpu_torch
-    from flacenc_tpu.models import reference_encoder
-    from flacenc_tpu.source import MemSource
+    from flacenc_tpu_torch.models import reference_encoder
+    from flacenc_tpu_torch.source import MemSource
 
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, channels, 16, 44100), block_size, device=dev, strict_lpc=strict
@@ -393,7 +521,7 @@ def corpus_phase(phases: Phases, cfg, workdir: str) -> None:
     """8 WAV files of 30-240 s at 44.1 and 48 kHz through `encode_corpus`
     on the card; each stream equals the file encoded alone."""
     import flacenc_tpu_torch
-    from flacenc_tpu.wav import WavFileSource, write_wav
+    from flacenc_tpu_torch.wav import WavFileSource, write_wav
     from flacenc_tpu_torch.ops import rice_tables
 
     files = [(240, 44100), (30, 48000), (95.5, 44100), (45.25, 48000),
@@ -434,7 +562,7 @@ def cli_phase(phases: Phases, workdir: str, extra_args=()) -> None:
     """`encode` through the port's command line on the card, `decode` back."""
     import numpy as np
 
-    from flacenc_tpu.wav import read_wav, write_wav
+    from flacenc_tpu_torch.wav import read_wav, write_wav
     from flacenc_tpu_torch import cli
     from flacenc_tpu_torch.ops import rice_tables
 
@@ -473,9 +601,9 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     import numpy as np
 
     import flacenc_tpu_torch
-    from flacenc_tpu import config, sigen
-    from flacenc_tpu.config import Window
-    from flacenc_tpu.source import MemSource
+    from flacenc_tpu_torch import config, sigen
+    from flacenc_tpu_torch.config import Window
+    from flacenc_tpu_torch.source import MemSource
 
     dev = phases.dev
     default = default_config()
@@ -536,15 +664,25 @@ def run_paths(phases: Phases, cli_args=()) -> None:
         cli_phase(phases, workdir, cli_args)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="smoke test of the port on one CUDA card")
+    parser.add_argument("--kernel-only", action="store_true",
+                        help="stop after the kernel checks and times (no encode paths, "
+                             "no result line)")
+    parser.add_argument("--compare-with", metavar="SOURCE.cu",
+                        help="also time the kernel built from another source of "
+                             "csrc/rice_tables.cu with the first kernel's C entry, in turns")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is required",
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from flacenc_tpu import config
+    from flacenc_tpu_torch import config
     from flacenc_tpu_torch.csrc import build as kbuild
     from flacenc_tpu_torch.models import batch_encoder as tbe
     from flacenc_tpu_torch.ops import fixed, rice, rice_tables
@@ -567,30 +705,40 @@ def main() -> int:
         print("ptxas: " + " | ".join(
             line.strip() for line in f if "registers" in line or "smem" in line))
 
-    # 3. kernel against plain, and the tie sites
-    max_err, kernel_ms, plain_ms = check_kernel(
-        rice_tables, rice.finest_partition_order, dev
-    )
+    # 3. kernel against plain and its times, and the tie sites
+    times = check_kernel(rice_tables, rice.finest_partition_order, dev)
+    if args.compare_with:
+        compare_with(args.compare_with, dev)
+    kernel = {
+        "name": "rice_cost_tables",
+        "route": "cuda",
+        "source": "flacenc_tpu_torch/csrc/rice_tables.cu",
+        "replaces": "flacenc_tpu/ops/pallas_rice.py:74",
+        "launches": None,
+        "max_abs_err": times["max_abs_err"],
+        "ms": times["ms"],
+        "cold_ms": times["cold_ms"],
+        "plain_ms": times["plain_ms"],
+        "transpose_ms": times["transpose_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the tables
+    }
+    if args.kernel_only:
+        print(json.dumps({"kernels": [kernel]}))
+        return 0
     check_ties(config, tbe, fixed, rice, dev)
 
     phases = Phases(dev, card)
     run_paths(phases)
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    if "jax" in sys.modules or any(m == "flacenc_tpu" or m.startswith("flacenc_tpu.")
+                                   for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s ({card})")
     # 13. kernels, then the result
-    print(json.dumps({"kernels": [{
-        "name": "rice_cost_tables",
-        "route": "cuda",
-        "source": "flacenc_tpu_torch/csrc/rice_tables.cu",
-        "replaces": "flacenc_tpu/ops/pallas_rice.py:74",
-        "launches": sum(phases.launches.values()),
-        "launches_by_path": phases.launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    kernel.update(launches=phases.launches["main path"], launches_by_path=phases.launches)
+    print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,11 +1,12 @@
 """flacenc_tpu_torch: the batched FLAC encoder on PyTorch and CUDA.
 
 A port of ``flacenc_tpu`` (JAX) to PyTorch, with the Rice cost-table kernel
-written by hand in CUDA C++ for Hopper (``csrc/rice_tables.cu``). The host
-side that never needed JAX is shared with ``flacenc_tpu``, not copied:
-configs, sources, the FLAC component model, signal generators, the C++
-packer and decoders, and the numpy reference encoder. This package imports
-``torch`` and never ``jax``.
+written by hand in CUDA C++ for Hopper (``csrc/rice_tables.cu``). It keeps
+its own copies of the host modules it needs, at the JAX package's relative
+paths: configs, errors, sources and WAV I/O, the FLAC component model, signal
+generators, the C++ packer and decoders (``native/``), and the numpy
+reference encoder. This package imports ``torch`` and nothing of ``jax`` or
+``flacenc_tpu``.
 
 Entries:
 
@@ -24,12 +25,10 @@ are byte-identical to it; it raises with `use_direct_mse` when explicit
 and falls back to the default mode when it came from the environment.
 """
 
-from flacenc_tpu import component, config, constants, errors, sigen, source
-from flacenc_tpu.errors import EncodeError, SourceError, Verified, VerifyError, into_verified
-
-from flacenc_tpu.models.reference_encoder import encode_fixed_size_frame
-
+from . import bitio, component, config, constants, errors, sigen, source
+from .errors import EncodeError, SourceError, Verified, VerifyError, into_verified
 from .models.batch_encoder import BatchEncoder, encode_with_fixed_block_size
+from .models.reference_encoder import encode_fixed_size_frame
 from .parallel import encode_corpus
 
 __version__ = constants.build_info.CRATE_VERSION
@@ -37,6 +36,7 @@ __version__ = constants.build_info.CRATE_VERSION
 
 __all__ = [
     "BatchEncoder",
+    "bitio",
     "component",
     "config",
     "constants",

@@ -1,40 +1,141 @@
 """Command line of the port: ``python -m flacenc_tpu_torch.cli encode|encode-corpus|decode``.
 
-The same arguments, output and exit codes as ``python -m flacenc_tpu.cli``,
-whose parser and decoder it reuses (that module imports JAX only inside
-its own encode paths, which this one replaces). `encode` and
-`encode-corpus` run on "cuda"; `--cpu-only` is the explicit request for
-"cpu"; `--oracle` runs the shared numpy encoder. There is no device probe
-and no fallback: without a card, a "cuda" run fails and the command exits
-non-zero (70, EX_SOFTWARE). `--profile-trace DIR` writes a
+The same arguments, output and exit codes as the JAX package's command
+line (``flacenc_tpu/cli.py``), which mirrors the reference CLI
+(``flacenc-rs/flacenc-bin/src/main.rs``): `encode` is the default
+subcommand; TOML config load (`--config`) and dump (`--dump-config`);
+`decode` parses, optionally dumps the component tree (`--dump-struct`,
+msgpack like the reference; a `.json` name switches to JSON), writes a WAV
+and verifies the stream MD5.
+
+`encode` and `encode-corpus` run on "cuda"; `--cpu-only` is the explicit
+request for "cpu"; `--oracle` runs the numpy reference encoder. There is no
+device probe and no fallback: without a card, a "cuda" run fails and the
+command exits non-zero (70, EX_SOFTWARE). `--profile-trace DIR` writes a
 `torch.profiler` Chrome trace to ``DIR/trace.json``.
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
+import json
 import os
 import sys
 import time
 
-from flacenc_tpu import cli as base_cli
-from flacenc_tpu import config as config_mod
-from flacenc_tpu import display
-from flacenc_tpu.errors import FlacencError
-from flacenc_tpu.wav import WavFileSource
-
+from . import config as config_mod
+from . import display
+from .component import decode_stream, parse_stream
 from .device import resolve_device
+from .errors import FlacencError
+from .source import samples_to_le_bytes
+from .wav import WavFileSource, write_wav
+
+# sysexits-style codes (main.rs:157-170)
+EX_USAGE = 64
+EX_DATAERR = 65
+EX_NOINPUT = 66
+EX_SOFTWARE = 70
+EX_CANTCREAT = 73
+EX_IOERR = 74
 
 
-def _build_parser():
-    """The JAX CLI's parser, with the help texts that name its backend
-    rewritten for this one."""
-    parser = base_cli._build_parser()
-    parser.description = "FLAC encoder on PyTorch and CUDA"
-    encode = parser._subparsers._group_actions[0].choices["encode"]
-    for opt in encode._actions:
-        if opt.dest == "profile_trace":
-            opt.help = "write a torch.profiler Chrome trace of the encode to DIR/trace.json"
-    return parser
+def _positive_int(text: str) -> int:
+    v = int(text)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1 (got {v})")
+    return v
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="flacenc", description="FLAC encoder on PyTorch and CUDA")
+    sub = p.add_subparsers(dest="command")
+
+    enc = sub.add_parser("encode", help="encode WAV to FLAC (default)")
+    enc.add_argument("source", help="input WAV file")
+    enc.add_argument("-o", "--output", required=True, help="output FLAC file")
+    enc.add_argument("-c", "--config", help="TOML encoder config")
+    enc.add_argument("--dump-config", help="write the effective config TOML here")
+    enc.add_argument("--block-size", type=int, default=None)
+    enc.add_argument(
+        "--batch-size", type=_positive_int, default=None,
+        help="blocks per device batch (default 64; output bytes never change)",
+    )
+    enc.add_argument(
+        "--cpu-only", action="store_true",
+        help="run the batched pipeline on the CPU (byte-identical to the card)",
+    )
+    enc.add_argument(
+        "--oracle", action="store_true",
+        help="use the scalar numpy reference encoder (the parity oracle)",
+    )
+    enc.add_argument(
+        "--strict-float", action="store_true",
+        help="exact stable-reference float semantics for QLPC estimation "
+             "(byte-identical streams to flacenc-rs stable builds)",
+    )
+    enc.add_argument(
+        "--profile-trace", default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the encode to DIR/trace.json",
+    )
+
+    corp = sub.add_parser(
+        "encode-corpus",
+        help="encode many WAVs, batching blocks across files on the device",
+    )
+    corp.add_argument("sources", nargs="+", help="input WAV files")
+    corp.add_argument("-d", "--output-dir", required=True)
+    corp.add_argument("-c", "--config", help="TOML encoder config")
+    corp.add_argument("--block-size", type=int, default=None)
+    corp.add_argument(
+        "--batch-size", type=_positive_int, default=None,
+        help="blocks per device batch (see encode)",
+    )
+    corp.add_argument(
+        "--strict-float", action="store_true",
+        help="exact stable-reference float semantics (see encode)",
+    )
+    corp.add_argument(
+        "--cpu-only", action="store_true",
+        help="run the batched pipeline on the CPU (see encode)",
+    )
+
+    dec = sub.add_parser("decode", help="decode FLAC to WAV (experimental)")
+    dec.add_argument("source", help="input FLAC file")
+    dec.add_argument("-o", "--output", required=True, help="output WAV file")
+    dec.add_argument(
+        "--dump-struct",
+        help="dump the parsed component tree (msgpack; .json for JSON)",
+    )
+    dec.add_argument("--no-verify", action="store_true", help="skip CRC/MD5 checks")
+    return p
+
+
+def _stream_struct(stream) -> dict:
+    info = stream.stream_info()
+    return {
+        "stream_info": {
+            "min_block_size": info.min_block_size,
+            "max_block_size": info.max_block_size,
+            "min_frame_size": info.min_frame_size,
+            "max_frame_size": info.max_frame_size,
+            "sample_rate": info.sample_rate,
+            "channels": info.channels,
+            "bits_per_sample": info.bits_per_sample,
+            "total_samples": info.total_samples,
+            "md5": info.md5.hex(),
+        },
+        "frames": [
+            {
+                "frame_number": f.header().frame_number,
+                "block_size": f.block_size(),
+                "channel_assignment": repr(f.header().channel_assignment),
+                "subframes": [type(s).__name__ for s in f.subframes()],
+            }
+            for f in stream.frames()
+        ],
+    }
 
 
 def _config(args) -> config_mod.Encoder:
@@ -64,9 +165,8 @@ def _profiled(trace_dir, device, fn):
 
 
 def main_enc(args) -> int:
-    import flacenc_tpu
-
-    import flacenc_tpu_torch
+    from .models import reference_encoder
+    from .models.batch_encoder import encode_with_fixed_block_size, resolve_strict
 
     cfg = _config(args)
     verified = cfg.into_verified()
@@ -84,11 +184,11 @@ def main_enc(args) -> int:
 
     def run():
         if device is None:
-            return flacenc_tpu.encode_with_fixed_block_size(
-                verified, src, cfg.block_size, use_tpu=False, strict_lpc=strict
+            return reference_encoder.encode_with_fixed_block_size(
+                verified, src, cfg.block_size, strict_lpc=resolve_strict(strict, cfg)
             )
         kwargs = {"batch_size": args.batch_size} if args.batch_size else {}
-        return flacenc_tpu_torch.encode_with_fixed_block_size(
+        return encode_with_fixed_block_size(
             verified, src, cfg.block_size, device=device, strict_lpc=strict, **kwargs
         )
 
@@ -139,6 +239,45 @@ def main_corpus(args) -> int:
     return 0
 
 
+def main_dec(args) -> int:
+    with open(args.source, "rb") as f:
+        data = f.read()
+    try:
+        stream = parse_stream(data, verify_crc=not args.no_verify)
+    except FlacencError as e:
+        # parse failures are EX_NOINPUT like the reference
+        # (main.rs:283-293), not EX_DATAERR
+        display.error(f"failed to parse the source FLAC file: {e}")
+        return EX_NOINPUT
+    if args.dump_struct:
+        tree = _stream_struct(stream)
+        if args.dump_struct.endswith(".json"):
+            with open(args.dump_struct, "w") as f:
+                json.dump(tree, f, indent=1)
+        else:
+            # rmp-serde msgpack analogue (flacenc-bin/src/main.rs:301-316)
+            from .utils import msgpack
+
+            with open(args.dump_struct, "wb") as f:
+                f.write(msgpack.packb(tree))
+    decoded = decode_stream(stream)
+    info = stream.stream_info()
+    md5_ok = True
+    if not args.no_verify:
+        md5 = hashlib.md5(
+            samples_to_le_bytes(decoded, -(-info.bits_per_sample // 8))
+        ).digest()
+        md5_ok = info.md5 == bytes(16) or md5 == info.md5
+    write_wav(
+        args.output, decoded, info.channels, info.bits_per_sample, info.sample_rate
+    )
+    display.progress_decoded(
+        args.source, args.output, len(decoded) // max(info.channels, 1), md5_ok
+    )
+    # MD5 mismatch exits EX_CANTCREAT like the reference (main.rs:352-356)
+    return 0 if md5_ok else EX_CANTCREAT
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     # default subcommand is `encode` (main.rs:404-418)
@@ -148,13 +287,13 @@ def main(argv=None) -> int:
     display.banner()
     if args.command is None:
         _build_parser().print_help()
-        return base_cli.EX_USAGE
+        return EX_USAGE
     try:
         if args.command == "encode":
             return main_enc(args)
         if args.command == "encode-corpus":
             return main_corpus(args)
-        return base_cli.main_dec(args)
+        return main_dec(args)
     except FileNotFoundError as e:
         # input-open failures are EX_NOINPUT, output-create failures
         # EX_CANTCREAT (flacenc-bin/src/main.rs:226,251,281-309)
@@ -163,16 +302,16 @@ def main(argv=None) -> int:
         for name in ("source", "config"):
             if getattr(args, name, None):
                 inputs.add(getattr(args, name))
-        return base_cli.EX_NOINPUT if e.filename in inputs else base_cli.EX_CANTCREAT
+        return EX_NOINPUT if e.filename in inputs else EX_CANTCREAT
     except OSError as e:
         display.error(str(e))
-        return base_cli.EX_IOERR
+        return EX_IOERR
     except FlacencError as e:
         display.error(str(e))
-        return base_cli.EX_DATAERR
+        return EX_DATAERR
     except Exception as e:  # internal errors, a missing card included (main.rs:234)
         display.error(f"internal error: {type(e).__name__}: {e}")
-        return base_cli.EX_SOFTWARE
+        return EX_SOFTWARE
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 The library (``flacenc_tpu_torch/_build/libflacenc_kernels.so``) is built
 from the sources in this directory at first use and rebuilt when a source is
-newer than it, like ``flacenc_tpu/native/build.py``. It is loaded with
-ctypes; nothing here includes PyTorch's headers, so a build takes seconds.
+newer than it. It is loaded with ctypes; nothing here includes PyTorch's
+headers, so a build takes seconds.
 
 Run directly (``python flacenc_tpu_torch/csrc/build.py [--force]``) or let
 ``flacenc_tpu_torch.ops.rice_tables`` build on its first CUDA launch. A

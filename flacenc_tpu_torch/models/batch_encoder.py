@@ -10,10 +10,10 @@ decisions array laid out by `coalesce_decisions`.
 
 Host half: `BatchRunner` uploads batches (with the strict host arrays of
 `_strict_ext_arrays` in strict mode), runs the module and hands the
-decisions to the shared C++ packer (``flacenc_tpu.native.
-pack_frames_recompute``), which rebuilds each residual from the raw blocks
-and writes the frames. `encode_with_fixed_block_size` reads a source into
-it; the ragged tail goes through the shared numpy oracle.
+decisions to the C++ packer (``native.pack_frames_recompute``), which
+rebuilds each residual from the raw blocks and writes the frames.
+`encode_with_fixed_block_size` reads a source into it; the ragged tail goes
+through the numpy oracle (``models/reference_encoder.py``).
 
 Stereo candidates are indexed L=0, R=1, M=2, S=3; assignment codes are
 0=LR, 1=LS, 2=RS, 3=MS (selection order matches coding.rs:500-522).
@@ -30,9 +30,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from flacenc_tpu import config as config_mod
-from flacenc_tpu import constants, native
-from flacenc_tpu.component.datatype import (
+from .. import config as config_mod
+from .. import constants, native
+from ..component.datatype import (
     BlockSizeSpec,
     ChannelAssignment,
     Frame,
@@ -40,16 +40,15 @@ from flacenc_tpu.component.datatype import (
     SampleSizeSpec,
     Stream,
 )
-from flacenc_tpu.errors import Verified
-from flacenc_tpu.models import reference_encoder
-from flacenc_tpu.ops.windows import get_window
-from flacenc_tpu.source import AsyncContext, FrameBuf, Source, verify_sample_range
-
 from ..device import resolve_device
+from ..errors import Verified
 from ..ops import fixed as ops_fixed
 from ..ops import lpc as ops_lpc
 from ..ops import rice as ops_rice
+from ..ops.windows import get_window
 from ..parallel import determine_worker_count
+from ..source import AsyncContext, FrameBuf, Source, verify_sample_range
+from . import reference_encoder
 
 # subframe type codes shared with the host packer
 T_CONSTANT, T_VERBATIM, T_FIXED, T_LPC = 0, 1, 2, 3
@@ -304,8 +303,8 @@ class BatchEncoder(nn.Module):
     """The device program for one (config, C, bps, T): (B, C, T) int16/int32
     blocks -> (B, F) int32 coalesced decisions.
 
-    `cfg` is the same `flacenc_tpu.config.Encoder` object (or its `Verified`
-    wrapper) the JAX package's ``build_encoder_fn`` takes; the only other
+    `cfg` is a `config.Encoder` (or its `Verified` wrapper), the config the
+    JAX package's ``build_encoder_fn`` takes; the only other
     state is the float32 analysis window, held as a buffer so `.to(device)`
     moves it. Every predictor option of the config is covered (BitCount,
     direct MSE / IRLS, any subset of stereo modes and subframe types, 1-8
@@ -451,11 +450,8 @@ def pack_frames_decisions(wire: np.ndarray, blocks: np.ndarray, frame_numbers,
                           block_size: int, n_threads: int) -> List[Frame]:
     """Frames from a (B, F) decisions array and the raw (B, C, T) blocks.
 
-    The shared C++ packer recomputes the stored channels and residuals from
-    the raw blocks. `n_threads` must be >= 1: the packer resolves a smaller
-    count through ``flacenc_tpu.parallel``, which imports JAX."""
-    if n_threads < 1:
-        raise ValueError(f"n_threads must be >= 1, got {n_threads}")
+    The C++ packer recomputes the stored channels and residuals from the
+    raw blocks on `n_threads` threads."""
     dec = split_decisions(wire, nchannels)
     B = dec.assign.shape[0]
     if nchannels == 2:
@@ -510,7 +506,7 @@ def _candidate_signals(chunk: np.ndarray, nchannels: int) -> np.ndarray:
 
 def _strict_ext_arrays(chunk: np.ndarray, cfg, nchannels: int, bps: int, window):
     """Strict-mode host arrays for every candidate channel of a (B, C, T)
-    batch: (qcoefs, order, shift) from the shared native sequential-FMA
+    batch: (qcoefs, order, shift) from the native sequential-FMA
     estimator, plus (fixed order, est_bits) from the native sequential-f32
     entropy when the fixed order is selected by ApproxEnt. Both follow the
     reference stable build's float semantics exactly. Raises when the
@@ -519,7 +515,7 @@ def _strict_ext_arrays(chunk: np.ndarray, cfg, nchannels: int, bps: int, window)
         raise RuntimeError(
             "strict mode requires the native library "
             f"(build failed: {native._load_error!r}); "
-            "run `python flacenc_tpu/native/build.py`"
+            "run `python -m flacenc_tpu_torch.native.build`"
         )
     sub = cfg.subframe_coding
     cand = _candidate_signals(chunk, nchannels)
@@ -683,7 +679,7 @@ def encode_with_fixed_block_size(
 
     `strict_lpc` (None reads ``FLACENC_STRICT_LPC=1``) computes the QLPC
     parameters, and the ApproxEnt fixed order, on the host with the
-    reference stable build's float semantics (the shared native library),
+    reference stable build's float semantics (the native library),
     so streams are byte-identical to it; see `resolve_strict` for the rule
     with `use_direct_mse`.
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from flacenc_tpu import constants
+from .. import constants
 
 MAX_FIXED_ORDER = constants.fixed.MAX_LPC_ORDER  # 4
 

@@ -28,7 +28,7 @@ import numpy as np
 
 import torch
 
-from flacenc_tpu import constants
+from .. import constants
 
 from .fixed import wrap_i32
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from flacenc_tpu import constants
+from .. import constants
 
 from . import rice_tables
 from .rice_tables import MAX_P_TO_BITS, N_P, encode_signbit

@@ -1,18 +1,14 @@
-"""Host parallelism of the port (counterpart of ``flacenc_tpu.parallel``).
+"""Host parallelism of the port (counterpart of the JAX package's ``parallel``).
 
-`determine_worker_count` is the host pack-thread count: ``flacenc_tpu.
-parallel`` imports its JAX mesh module on import, so the port keeps its own
-copy of this one function and always hands the native packer an explicit
-thread count (the packer resolves a count < 1 through that package).
-`encode_corpus` (``pipeline.py``) encodes many sources through shared
-device batches.
+`determine_worker_count` is the host pack-thread count; `encode_corpus`
+(``pipeline.py``) encodes many sources through shared device batches.
 """
 
 from __future__ import annotations
 
 import os
 
-from flacenc_tpu import constants
+from .. import constants
 
 
 def determine_worker_count(cfg=None) -> int:

@@ -14,9 +14,6 @@ stream:
   one digest per file;
 - each file's ragged tail is encoded by the numpy oracle, and its frames
   are put back in order by frame number (the `ParSink` map, par.rs:67-95).
-
-`PipelineStats`, `_Md5Thread` and `_BulkHashCtx` are rewritten here: the JAX
-package's copies live in a module whose package imports JAX.
 """
 
 from __future__ import annotations
@@ -29,12 +26,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from flacenc_tpu import config as config_mod
-from flacenc_tpu.component.datatype import Frame, Stream
-from flacenc_tpu.errors import Verified
-from flacenc_tpu.log import info_stats
-from flacenc_tpu.models import reference_encoder
-from flacenc_tpu.source import BoundedWorker, FrameBuf, Source, samples_to_le_bytes
+from .. import config as config_mod
+from ..component.datatype import Frame, Stream
+from ..errors import Verified
+from ..log import info_stats
+from ..models import reference_encoder
+from ..source import BoundedWorker, FrameBuf, Source, samples_to_le_bytes
 
 # a module reference: the batch encoder imports this package in turn
 from ..models import batch_encoder as be

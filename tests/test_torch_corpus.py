@@ -13,6 +13,8 @@ from flacenc_tpu.parallel import encode_corpus as jax_encode_corpus  # noqa: E40
 from flacenc_tpu.source import MemSource  # noqa: E402
 
 import flacenc_tpu_torch  # noqa: E402
+from flacenc_tpu_torch import config as tconfig  # noqa: E402
+from flacenc_tpu_torch.source import MemSource as TMemSource  # noqa: E402
 
 T = 1024
 BATCH = 8
@@ -32,18 +34,19 @@ _FILES = [(T * 19 + 300, 44100), (T * 3 + 10, 48000), (T * 8, 44100),
           (500, 48000), (T * 5 + 1, 44100)]
 
 
-def _sources(C=2):
-    return [(f"f{i}", MemSource(_clip(n, i, C), C, 16, rate))
+def _sources(C=2, source=TMemSource):
+    return [(f"f{i}", source(_clip(n, i, C), C, 16, rate))
             for i, (n, rate) in enumerate(_FILES)]
 
 
 @pytest.mark.parametrize("strict", [False, True])
 def test_corpus_matches_single_file_and_jax(strict):
-    cfg = config.Encoder().into_verified()
+    cfg = tconfig.Encoder().into_verified()
     streams, stats = flacenc_tpu_torch.encode_corpus(
         _sources(), cfg, T, batch_size=BATCH, device="cpu", strict_lpc=strict
     )
-    jax_streams, _ = jax_encode_corpus(_sources(), cfg, T, batch_size=BATCH, strict_lpc=strict)
+    jax_streams, _ = jax_encode_corpus(_sources(source=MemSource), config.Encoder().into_verified(),
+                                       T, batch_size=BATCH, strict_lpc=strict)
     assert stats.files == len(_FILES)
     assert stats.tail_frames == sum(n % T > 0 for n, _ in _FILES)
     assert stats.frames == sum(-(-n // T) for n, _ in _FILES)
@@ -61,29 +64,29 @@ def test_corpus_matches_single_file_and_jax(strict):
 def test_corpus_mono_per_block_sources():
     """Sources without the bulk read go through the per-block path."""
 
-    class NoBulk(MemSource):
+    class NoBulk(TMemSource):
         def read_blocks_batch(self, n_blocks, block_size, context):
             return None
 
     files = [(T * 9 + 5, 44100), (T * 2, 44100)]
     srcs = [(f"m{i}", NoBulk(_clip(n, i, C=1), 1, 16, r)) for i, (n, r) in enumerate(files)]
-    cfg = config.Encoder()
+    cfg = tconfig.Encoder()
     streams, stats = flacenc_tpu_torch.encode_corpus(srcs, cfg, T, batch_size=BATCH, device="cpu")
     assert stats.batches == 2
     for i, (n, rate) in enumerate(files):
         alone = flacenc_tpu_torch.encode_with_fixed_block_size(
-            cfg, MemSource(_clip(n, i, C=1), 1, 16, rate), T, device="cpu"
+            cfg, TMemSource(_clip(n, i, C=1), 1, 16, rate), T, device="cpu"
         ).to_bytes()
         assert streams[f"m{i}"].to_bytes() == alone
 
 
 def test_corpus_rejects_mismatched_sources():
-    cfg = config.Encoder()
-    for other in (MemSource(_clip(T, 0, C=1), 1, 16, 44100),
-                  MemSource(_clip(T, 0), 2, 24, 44100)):
+    cfg = tconfig.Encoder()
+    for other in (TMemSource(_clip(T, 0, C=1), 1, 16, 44100),
+                  TMemSource(_clip(T, 0), 2, 24, 44100)):
         with pytest.raises(ValueError, match="share channel count"):
             flacenc_tpu_torch.encode_corpus(
-                [("a", MemSource(_clip(T, 0), 2, 16, 44100)), ("b", other)], cfg, T,
+                [("a", TMemSource(_clip(T, 0), 2, 16, 44100)), ("b", other)], cfg, T,
                 device="cpu",
             )
     assert flacenc_tpu_torch.encode_corpus([], cfg, T, device="cpu")[0] == {}
@@ -94,5 +97,5 @@ def test_corpus_on_cuda_without_card_raises():
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError, match="is_available"):
         flacenc_tpu_torch.encode_corpus(
-            [("a", MemSource(_clip(T, 0), 2, 16, 44100))], config.Encoder(), T
+            [("a", TMemSource(_clip(T, 0), 2, 16, 44100))], tconfig.Encoder(), T
         )

@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 from flacenc_tpu import config, sigen  # noqa: E402
 from flacenc_tpu.component import decode_stream, parse_stream  # noqa: E402
+from flacenc_tpu.errors import Verified  # noqa: E402
 from flacenc_tpu.models import batch_encoder as jbe  # noqa: E402
 from flacenc_tpu.models import reference_encoder  # noqa: E402
 from flacenc_tpu.native import independent  # noqa: E402
@@ -17,10 +18,19 @@ from flacenc_tpu.source import MemSource  # noqa: E402
 
 import flacenc_tpu  # noqa: E402
 import flacenc_tpu_torch  # noqa: E402
+from flacenc_tpu_torch import config as tconfig  # noqa: E402
 from flacenc_tpu_torch.models import batch_encoder as tbe  # noqa: E402
+from flacenc_tpu_torch.source import MemSource as TMemSource  # noqa: E402
 
 T = 1024
 B = 8
+
+
+def _port(cfg):
+    """The port's copy of a JAX-package config, verified if it was."""
+    if isinstance(cfg, Verified):
+        return tconfig.Encoder.from_dict(cfg.inner.to_dict()).into_verified()
+    return tconfig.Encoder.from_dict(cfg.to_dict())
 
 
 def _sigen_blocks(C, bps, n_blocks=B, block=T):
@@ -37,7 +47,7 @@ def _decisions_both(cfg, blocks, bps):
     exp = np.asarray(jbe._cached_encoder_fn(
         cfg.to_toml(), C, bps, T_, False, True
     )(blocks))
-    got = tbe.BatchEncoder(cfg, C, bps, T_)(torch.from_numpy(blocks))
+    got = tbe.BatchEncoder(_port(cfg), C, bps, T_)(torch.from_numpy(blocks))
     assert got.dtype == torch.int32
     return got.numpy(), exp
 
@@ -84,9 +94,8 @@ def test_fixed_order_tie_takes_lowest_order():
 
 
 def test_split_decisions_roundtrip():
-    cfg = config.Encoder()
     blocks = _sigen_blocks(2, 16)
-    enc = tbe.BatchEncoder(cfg, 2, 16, T)(torch.from_numpy(blocks)).numpy()
+    enc = tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T)(torch.from_numpy(blocks)).numpy()
     dec = tbe.split_decisions(enc, 2)
     jdec = jbe.split_decisions(enc, 2)
     for name in dec._fields:
@@ -101,7 +110,7 @@ def test_split_decisions_roundtrip():
 ])
 def test_unported_variants_raise(variant):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbe.BatchEncoder(config.Encoder(), 2, 16, T, **variant)
+        tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T, **variant)
 
 
 def _set(path, value):
@@ -181,8 +190,8 @@ def test_bitcount_launches_a_rice_search_per_order():
     LPC: the Rice table wrapper is called max_order + 2 times per forward."""
     from flacenc_tpu_torch.ops import rice_tables
 
-    cfg = config.Encoder()
-    cfg.subframe_coding.fixed.order_sel = config.OrderSel(type="BitCount")
+    cfg = tconfig.Encoder()
+    cfg.subframe_coding.fixed.order_sel = tconfig.OrderSel(type="BitCount")
     calls = []
     plain = rice_tables.rice_cost_tables_plain
     try:
@@ -210,7 +219,7 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
     cfg = config.Encoder().into_verified()
     stats = {}
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
-        cfg, MemSource(x, 2, 16, 44100), T, batch_size=batch_size, device="cpu",
+        _port(cfg), TMemSource(x, 2, 16, 44100), T, batch_size=batch_size, device="cpu",
         stats=stats,
     ).to_bytes()
     jax_bytes = flacenc_tpu.encode_with_fixed_block_size(
@@ -233,7 +242,7 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
 def test_stream_mono_24bit_per_block_source_matches_oracle():
     """A source without the bulk read goes through the per-block path."""
 
-    class NoBulk(MemSource):
+    class NoBulk(TMemSource):
         def read_blocks_batch(self, n_blocks, block_size, context):
             return None
 
@@ -241,7 +250,7 @@ def test_stream_mono_24bit_per_block_source_matches_oracle():
     x = sigen.Sine(100, 0.5).noise_with_seed(5, 0.02).to_vec_quantized(24, n)
     cfg = config.Encoder().into_verified()
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
-        cfg, NoBulk(x, 1, 24, 96000), T, batch_size=2, device="cpu"
+        _port(cfg), NoBulk(x, 1, 24, 96000), T, batch_size=2, device="cpu"
     ).to_bytes()
     oracle = reference_encoder.encode_with_fixed_block_size(
         cfg, MemSource(x, 1, 24, 96000), T
@@ -254,5 +263,5 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError, match="cuda"):
         flacenc_tpu_torch.encode_with_fixed_block_size(
-            config.Encoder(), MemSource(_stereo(T), 2, 16, 44100), T
+            tconfig.Encoder(), TMemSource(_stereo(T), 2, 16, 44100), T
         )

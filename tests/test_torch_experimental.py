@@ -22,8 +22,11 @@ from flacenc_tpu.ops.windows import get_window  # noqa: E402
 from flacenc_tpu.source import MemSource  # noqa: E402
 
 import flacenc_tpu_torch  # noqa: E402
+from flacenc_tpu_torch import config as tconfig  # noqa: E402
 from flacenc_tpu_torch.models import batch_encoder as tbe  # noqa: E402
 from flacenc_tpu_torch.ops import lpc as tlpc  # noqa: E402
+from flacenc_tpu_torch.ops.windows import get_window as tget_window  # noqa: E402
+from flacenc_tpu_torch.source import MemSource as TMemSource  # noqa: E402
 
 RTOL = 1e-9  # float64 results: XLA and torch sum in different orders
 T = 1024
@@ -38,8 +41,10 @@ def _signals(B=4, T_=T, bps=16):
 
 def _windowed(sig, window=Window.rectangle()):
     w = get_window(window, sig.shape[-1])
+    tw = tget_window(tconfig.Window.from_dict(window.to_dict()), sig.shape[-1])
+    assert np.array_equal(tw, w)
     return (jlpc.apply_window(jnp.asarray(sig), w),
-            tlpc.apply_window(torch.from_numpy(sig), torch.from_numpy(w.copy())))
+            tlpc.apply_window(torch.from_numpy(sig), torch.from_numpy(tw.copy())))
 
 
 def _weights(B, T_, seed=3):
@@ -194,7 +199,8 @@ def test_decisions_match_jax(mae_steps):
     cfg = _experimental_cfg(mae_steps, lpc_order=6)
     blocks = _stereo_blocks()
     exp = np.asarray(jbe._cached_encoder_fn(cfg.to_toml(), 2, 16, 512, False, True)(blocks))
-    got = tbe.BatchEncoder(cfg, 2, 16, 512)(torch.from_numpy(blocks)).numpy()
+    tcfg = tconfig.Encoder.from_dict(cfg.to_dict())
+    got = tbe.BatchEncoder(tcfg, 2, 16, 512)(torch.from_numpy(blocks)).numpy()
     assert np.array_equal(got, exp)
     assert tbe.T_LPC in tbe.split_decisions(got, 2).sf_type
 
@@ -206,8 +212,9 @@ def test_stream_bytes_match_oracle():
     x[0::2] = sigen.Sine(90, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
     x[1::2] = sigen.Sine(91, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
     cfg = _experimental_cfg().into_verified()
+    tcfg = tconfig.Encoder.from_dict(cfg.inner.to_dict()).into_verified()
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
-        cfg, MemSource(x, 2, 16, 44100), 1024, device="cpu"
+        tcfg, TMemSource(x, 2, 16, 44100), 1024, device="cpu"
     ).to_bytes()
     oracle = reference_encoder.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 1024

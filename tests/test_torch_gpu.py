@@ -1,5 +1,6 @@
-"""Card-only checks of the port: the CUDA Rice kernel against its plain
-PyTorch version, and the whole device program on CUDA against the CPU on
+"""Card-only checks of the port: the CUDA Rice kernels (tensor-core and
+transpose) against their plain PyTorch version, and the whole device
+program on CUDA against the CPU on
 every path (mono, stereo, 24-bit, fixed-only, BitCount, strict, direct MSE
 and IRLS).
 
@@ -14,10 +15,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from flacenc_tpu import config, sigen  # noqa: E402
-from flacenc_tpu.source import MemSource  # noqa: E402
-from flacenc_tpu.models import reference_encoder  # noqa: E402
-from flacenc_tpu.ops.windows import get_window  # noqa: E402
+from flacenc_tpu_torch import config, sigen  # noqa: E402
+from flacenc_tpu_torch.source import MemSource  # noqa: E402
+from flacenc_tpu_torch.models import reference_encoder  # noqa: E402
+from flacenc_tpu_torch.ops.windows import get_window  # noqa: E402
 
 import flacenc_tpu_torch  # noqa: E402
 from flacenc_tpu_torch.models import batch_encoder as tbe  # noqa: E402
@@ -50,6 +51,20 @@ def test_kernel_matches_plain(cuda, T):
     errors = rng.integers(-(1 << 20), 1 << 20, (8, 4, T)).astype(np.int32)
     warmup = rng.integers(0, 25, (8, 4)).astype(np.int32)
     _kernel_vs_plain(errors, warmup, cuda)
+
+
+def test_unaligned_input_takes_the_transpose_kernel(cuda):
+    rng = np.random.default_rng(3)
+    errors = rng.integers(-(1 << 20), 1 << 20, (4, 4, 4096)).astype(np.int32)
+    warmup = rng.integers(0, 25, (4, 4)).astype(np.int32)
+    flat = torch.empty(errors.size + 1, dtype=torch.int32, device=cuda)
+    e = flat[1:].view(errors.shape)  # 4 bytes past an aligned start
+    e.copy_(torch.from_numpy(errors))
+    w = torch.from_numpy(warmup).to(cuda)
+    assert rice_tables.launch_plan(4096, 6, e.data_ptr()).kernel == "transpose"
+    got = rice_tables.rice_cost_tables(e, w, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rice_tables.rice_cost_tables_plain(e, w, 6))
 
 
 def test_kernel_saturation_and_int32_limits(cuda):

@@ -13,7 +13,9 @@ from flacenc_tpu import config, sigen  # noqa: E402
 from flacenc_tpu.ops import lpc as jlpc  # noqa: E402
 from flacenc_tpu.ops import ref_np  # noqa: E402
 from flacenc_tpu.ops.windows import get_window  # noqa: E402
+from flacenc_tpu_torch import config as tconfig  # noqa: E402
 from flacenc_tpu_torch.ops import lpc as tlpc  # noqa: E402
+from flacenc_tpu_torch.ops.windows import get_window as tget_window  # noqa: E402
 
 ORDER = 10
 PRECISION = 15
@@ -48,7 +50,9 @@ def _jax_coefs(sig, window):
 
 
 def _port_coefs(sig):
-    win = tlpc.apply_window(torch.from_numpy(sig), torch.from_numpy(_window().copy()))
+    twindow = tget_window(tconfig.Window(), T)
+    assert np.array_equal(twindow, _window())
+    win = tlpc.apply_window(torch.from_numpy(sig), torch.from_numpy(twindow.copy()))
     corr = tlpc.auto_correlation(win, ORDER)
     return win, corr, tlpc.levinson(corr, ORDER)
 
