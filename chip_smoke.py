@@ -19,11 +19,20 @@ the card, each at a size users run:
   strict encoder;
 - a corpus of 8 WAV files of 30-240 s at two sample rates, each stream
   equal to the file encoded alone;
-- the command line: encode a WAV on the card, decode it back.
+- the command line: encode a WAV on the card, decode it back;
+- the residual-shipping packers: packer="native" on 60 s CD stereo and on
+  20 s of 24-bit / 96 kHz stereo whose residuals overflow int16 (the host
+  recomputes those channels), packer="python" on 10 s CD stereo, each
+  stream equal to the default packer's;
+- a mesh of two replicas on the card (60 s CD stereo, equal to one
+  device's stream), `total_bits_psum` and `dryrun_multichip(2)`;
+- the device fuzz tier: 100 default-mode and 25 strict cases at block 512
+  against the numpy oracle.
 
 Every path decodes losslessly with two decoders and its MD5 matches; one
-batch of its blocks gives the same decisions on the card as on the CPU;
-and the Rice kernel's launch count equals what the config implies. Every
+batch of its blocks gives the same decisions (on the residual packers'
+paths every output, residuals included) on the card as on the CPU; and
+the Rice kernel's launch count equals what the config implies. Every
 failure raises; the script exits 0 only when every phase passed. Its last
 line is one JSON object naming the card; the line before it lists each
 kernel with its launches on every path and its times.
@@ -401,11 +410,14 @@ def first_batch(x, channels: int, block_size: int, batch: int = 64):
         .transpose(0, 2, 1).astype(np.int32).copy()
 
 
-def check_decisions(cfg, blocks, bps: int, dev, strict: bool = False) -> None:
+def check_decisions(cfg, blocks, bps: int, dev, strict: bool = False,
+                    residuals: bool = False) -> None:
     """One batch through the same BatchEncoder on the CPU and on the card
     (the strict host arrays, when strict, given to both): the decisions
-    must be equal. This holds the Rice kernel against its plain version on
-    the path's real residuals. Launches made here are not counted."""
+    must be equal, and with `residuals` every `DeviceEncoded` field, the
+    int16 residuals and fits16 included. This holds the Rice kernel
+    against its plain version on the path's real residuals. Launches made
+    here are not counted."""
     import torch
 
     from flacenc_tpu_torch.ops.windows import get_window
@@ -416,11 +428,17 @@ def check_decisions(cfg, blocks, bps: int, dev, strict: bool = False) -> None:
     if strict:
         window = get_window(cfg.subframe_coding.qlpc.window, T)
         ext = tuple(torch.from_numpy(a) for a in tbe._strict_ext_arrays(blocks, cfg, C, bps, window))
-    enc = tbe.BatchEncoder(cfg, C, bps, T, strict_lpc=strict)
+    enc = tbe.BatchEncoder(cfg, C, bps, T, strict_lpc=strict, decisions_only=not residuals)
     x = torch.from_numpy(blocks)
     with torch.inference_mode():
         cpu = enc(x, *ext)
-        gpu = enc.to(dev)(x.to(dev), *(a.to(dev) for a in ext)).cpu()
+        gpu = enc.to(dev)(x.to(dev), *(a.to(dev) for a in ext))
+    if residuals:
+        for field, a, b in zip(cpu._fields, cpu, gpu):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"DeviceEncoded.{field} differs between the card and the CPU")
+        return
+    gpu = gpu.cpu()
     if not torch.equal(cpu, gpu):
         rows = int((cpu != gpu).any(dim=1).sum())
         raise AssertionError(f"decisions differ between the card and the CPU in {rows} blocks")
@@ -453,49 +471,59 @@ class Phases:
         self.card = card
         self.launches = {}
 
-    def stream(self, name, cfg, x, channels, bps, rate, *, block_size=4096, strict=None):
+    def stream(self, name, cfg, x, channels, bps, rate, *, block_size=4096, strict=None,
+               packer="auto", mesh="auto"):
         """Drive `encode_with_fixed_block_size` on the card once with the
         launch count reset just before and read just after; returns the
-        stream's bytes."""
+        stream's bytes. A mesh of n replicas launches n forwards a batch."""
         import flacenc_tpu_torch
+        from flacenc_tpu_torch.models import batch_encoder as tbe
         from flacenc_tpu_torch.source import MemSource
         from flacenc_tpu_torch.ops import rice_tables
 
         check_decisions(cfg, first_batch(x, channels, block_size), bps, self.dev,
-                        strict=bool(strict))
+                        strict=bool(strict), residuals=packer in ("native", "python"))
         stats = {}
         rice_tables.launches = 0
         t0 = time.perf_counter()
         stream = flacenc_tpu_torch.encode_with_fixed_block_size(
             cfg, MemSource(x, channels, bps, rate), block_size, device=self.dev,
-            stats=stats, strict_lpc=strict,
+            stats=stats, strict_lpc=strict, packer=packer, mesh=mesh,
         )
         wall = time.perf_counter() - t0
         launches = rice_tables.launches
         per_forward = rice_per_forward(cfg, block_size)
-        if launches == 0 or launches != per_forward * stats["batches"]:
+        shards = max(1, tbe._mesh_device_count(mesh, 64, self.dev))
+        if launches == 0 or launches != per_forward * stats["batches"] * shards:
             raise AssertionError(
                 f"{name}: rice_cost_tables launched {launches} times for "
-                f"{stats['batches']} batches x {per_forward} per forward"
+                f"{stats['batches']} batches x {shards} shards x {per_forward} per forward"
             )
-        data = stream.to_bytes()
+        t0 = time.perf_counter()
+        data = stream.to_bytes()  # the "python" packer's frames serialize here
+        stats["serialize_s"] = time.perf_counter() - t0
         check_lossless(data, x, -(-bps // 8), name)
         self.report(name, len(x) / channels / rate, wall, len(data), x.size,
-                    launches, per_forward, stats)
+                    launches, per_forward, stats, shards=shards, packer=packer,
+                    download=download_bytes(channels, block_size, 64, tbe.resolve_packer(packer)))
         return data
 
-    def report(self, name, audio_s, wall, nbytes, nvalues, launches, per_forward, stats):
+    def report(self, name, audio_s, wall, nbytes, nvalues, launches, per_forward, stats,
+               shards=1, packer="auto", download=None):
         """One JSON line of the path's numbers, beside the card's name."""
+        from flacenc_tpu_torch.models import batch_encoder as tbe
+
         self.launches[name] = launches
         print(f"{name}: " + json.dumps({
             "audio_s": audio_s, "x_realtime": audio_s / wall, "wall_s": wall,
             "bits_per_sample": 8 * nbytes / nvalues, "bytes": nbytes,
-            "rice_launches": launches, "rice_per_forward": per_forward,
+            "rice_launches": launches, "rice_per_forward": per_forward, "shards": shards,
+            "packer": tbe.resolve_packer(packer), "download_bytes_per_batch": download,
             "stats": stats, "card": self.card,
         }))
         print(f"{name}: decoded losslessly by both decoders, MD5 matches, card decisions "
               f"== CPU decisions, launches {launches} == {per_forward} x "
-              f"{stats['batches']} batches")
+              f"{stats['batches']} batches x {shards} shards")
 
 
 def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None:
@@ -595,6 +623,156 @@ def cli_phase(phases: Phases, workdir: str, extra_args=()) -> None:
                   {"batches": batches})
 
 
+def download_bytes(channels: int, block_size: int, batch: int, packer: str) -> int:
+    """Bytes one batch downloads: the (B, F) int32 decisions for "native2";
+    for "native" and "python" the decisions plus a fits16 column group and
+    the (B, C, T) int16 residuals."""
+    from flacenc_tpu_torch import constants
+    from flacenc_tpu_torch.ops import rice
+
+    P = 1 << rice.finest_partition_order(block_size, constants.rice.MIN_PARTITION_SIZE)
+    F = 1 + channels * (5 + constants.qlpc.MAX_ORDER + P)
+    if packer == "native2":
+        return batch * F * 4
+    return batch * (F + channels) * 4 + batch * channels * block_size * 2
+
+
+def timed(label: str):
+    """Prints the wall time of the `with` block as the phase's time."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def block():
+        t0 = time.perf_counter()
+        yield
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s wall")
+
+    return block()
+
+
+def encode_bytes(dev, cfg, x, channels, bps, rate, **kw) -> bytes:
+    """One encode on the card outside the counted runs (a reference)."""
+    import flacenc_tpu_torch
+    from flacenc_tpu_torch.source import MemSource
+
+    return flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, channels, bps, rate), 4096, device=dev, **kw
+    ).to_bytes()
+
+
+def residual_packer_phases(phases: Phases) -> None:
+    """a. packer="native" on 60 s CD stereo; b. "native" on 20 s of 24-bit /
+    96 kHz stereo noisy enough that residuals overflow int16 (so the host
+    recompute runs); c. packer="python" on 10 s CD stereo. Each stream
+    equals the "native2" stream of the same audio."""
+    import numpy as np
+
+    from flacenc_tpu_torch import sigen
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+
+    dev, default = phases.dev, default_config()
+    with timed("a (native packer, 60 s CD)"):
+        x = cd_audio(60, seed=17)
+        got = phases.stream("native packer", default, x, 2, 16, 44100, packer="native")
+        if got != encode_bytes(dev, default, x, 2, 16, 44100, packer="native2"):
+            raise AssertionError("native packer: bytes differ from native2's")
+        print(f"native packer: bytes == native2, download {download_bytes(2, 4096, 64, 'native')} "
+              f"B per batch against native2's {download_bytes(2, 4096, 64, 'native2')}")
+
+    with timed("b (native packer, 20 s 24/96 beyond int16)"):
+        n = 20 * 96000
+        x = np.zeros(2 * n, np.int32)  # the signal of tests/test_packers.py:72
+        for ch in range(2):
+            x[ch::2] = sigen.Sine(97 + ch, 0.6).noise_with_seed(ch, 0.2).to_vec_quantized(24, n)
+        fixed = []
+        real = tbe._host_errors
+
+        def counting(enc, signal):
+            fixed.append(int(((~enc.fits16) & (enc.sf_type >= tbe.T_FIXED)).sum()))
+            return real(enc, signal)
+
+        tbe._host_errors = counting
+        try:
+            got = phases.stream("native packer 24-bit overflow", default, x, 2, 24, 96000,
+                                packer="native")
+        finally:
+            tbe._host_errors = real
+        if not sum(fixed):
+            raise AssertionError("24-bit overflow: no channel had fits16 false")
+        if got != encode_bytes(dev, default, x, 2, 24, 96000, packer="native2"):
+            raise AssertionError("native packer 24-bit overflow: bytes differ from native2's")
+        print(f"native packer 24-bit overflow: {sum(fixed)} of {2 * (n // 4096)} stored "
+              "channels were predicted with a residual beyond int16 (fits16 false) and "
+              "recomputed on the host; bytes == native2")
+
+    with timed("c (python packer, 10 s CD)"):
+        x = cd_audio(10, seed=18)
+        got = phases.stream("python packer", default, x, 2, 16, 44100, packer="python")
+        if got != encode_bytes(dev, default, x, 2, 16, 44100, packer="native2"):
+            raise AssertionError("python packer: bytes differ from native2's")
+        print("python packer: bytes == native2")
+
+
+def mesh_phase(phases: Phases) -> None:
+    """d. A mesh of two replicas on cuda:0 over 60 s of CD stereo: bytes
+    equal one device's; `total_bits_psum` over one batch's shards equals the
+    sum of the decisions' sf_bits; `dryrun_multichip(2)`. With more than one
+    card, `mesh="auto"` across them too."""
+    import torch
+
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+    from flacenc_tpu_torch.parallel import mesh as pmesh
+
+    dev, default = phases.dev, default_config()
+    with timed("d (mesh of two replicas, 60 s CD)"):
+        x = cd_audio(60, seed=19)
+        m = pmesh.block_mesh([dev, dev])
+        got = phases.stream("mesh 2 replicas", default, x, 2, 16, 44100, mesh=m)
+        if got != encode_bytes(dev, default, x, 2, 16, 44100, mesh=None):
+            raise AssertionError("mesh: bytes differ from mesh=None")
+        blocks = torch.from_numpy(first_batch(x, 2, 4096))
+        with torch.inference_mode():
+            enc = tbe.BatchEncoder(default, 2, 16, 4096, decisions_only=False)
+            pinned = blocks.pin_memory() if dev.type == "cuda" else blocks
+            shards = pmesh.shard_encoder_fn(enc, m).launch(pinned)
+            total = int(pmesh.total_bits_psum([o.sf_bits for _, o in shards], m))
+            dec = tbe.split_decisions(
+                tbe.BatchEncoder(default, 2, 16, 4096).to(dev)(blocks.to(dev)).cpu().numpy(), 2)
+        if total != int(dec.sf_bits.sum()):
+            raise AssertionError(f"total_bits_psum {total} != decisions' {int(dec.sf_bits.sum())}")
+        print(f"mesh: bytes == mesh=None; total_bits_psum {total} == sum of sf_bits")
+        pmesh.dryrun_multichip(2, device=dev.type)
+        n_cards = torch.cuda.device_count()
+        print(f"torch.cuda.device_count() = {n_cards}")
+        if n_cards > 1:
+            phases.stream("mesh auto", default, x, 2, 16, 44100, mesh="auto")
+
+
+def fuzz_phase(phases: Phases, default_cases: int = 100, strict_cases: int = 25) -> dict:
+    """e. The device fuzz tier on the card at block 512: a default-tier run
+    (divergences must resolve in strict mode) and a strict-tier run (every
+    case byte-equal to the oracle)."""
+    from flacenc_tpu_torch import fuzz
+    from flacenc_tpu_torch.ops import rice_tables
+
+    out = {}
+    with timed(f"e (device fuzz, {default_cases} default + {strict_cases} strict cases)"):
+        rice_tables.launches = 0
+        for strict, n in ((False, default_cases), (True, strict_cases)):
+            r = fuzz.run(range(n), strict=strict, device=phases.dev)
+            seeds = [d["seed"] for d in r["divergences"]]
+            if strict and seeds:
+                raise AssertionError(f"strict fuzz diverged at seeds {seeds}")
+            out["strict" if strict else "default"] = r
+            print(f"fuzz {'strict' if strict else 'default'} tier: {r['cases']} cases in "
+                  f"{r['seconds']:.2f} s, {len(seeds)} divergences (each resolved by strict "
+                  f"mode), seeds {seeds}")
+        if rice_tables.launches == 0:
+            raise AssertionError("fuzz: the Rice kernel was never launched")
+        phases.launches["fuzz"] = rice_tables.launches
+    return out
+
+
 def run_paths(phases: Phases, cli_args=()) -> None:
     """Every encode path of the port, through its public entries, on
     `phases.dev`, each checked as the module docstring says."""
@@ -662,6 +840,11 @@ def run_paths(phases: Phases, cli_args=()) -> None:
         corpus_phase(phases, default, workdir)
         # 12. the command line
         cli_phase(phases, workdir, cli_args)
+
+    # 13. the residual-shipping packers, the mesh and the device fuzz tier
+    residual_packer_phases(phases)
+    mesh_phase(phases)
+    fuzz_phase(phases)
 
 
 def main(argv=None) -> int:
@@ -736,7 +919,7 @@ def main(argv=None) -> int:
                                    for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s ({card})")
-    # 13. kernels, then the result
+    # 14. kernels, then the result
     kernel.update(launches=phases.launches["main path"], launches_by_path=phases.launches)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,20 @@ reference encoder. This package imports ``torch`` and nothing of ``jax`` or
 Entries:
 
 - `encode_with_fixed_block_size(config, src, block_size, batch_size=64,
-  device="cuda", stats=None, strict_lpc=None)` encodes one source;
+  device="cuda", stats=None, strict_lpc=None, packer="auto", mesh="auto")`
+  encodes one source;
 - `encode_corpus(sources, config, block_size, batch_size=64,
-  device="cuda", strict_lpc=None)` encodes many through shared batches
-  and returns ({name: Stream}, PipelineStats);
-- ``python -m flacenc_tpu_torch.cli`` is the command line.
+  device="cuda", strict_lpc=None, packer="auto", mesh="auto")` encodes
+  many through shared batches and returns ({name: Stream}, PipelineStats);
+- ``python -m flacenc_tpu_torch.cli`` is the command line,
+  ``python -m flacenc_tpu_torch.fuzz --device`` the device fuzz tier, and
+  ``flacenc_tpu_torch.tools`` holds the profiler and microbenchmark.
+
+`packer` picks the host assembly ("native2": decisions only, the C++
+packer rebuilds the residuals; "native": the card ships int16 residuals
+to the C++ packer; "python": `component` objects; "auto": "native2", or
+"python" without the native library). `mesh` splits each batch over
+replicas of the device program (``parallel.mesh``). Neither changes bytes.
 
 The device is explicit: "cuda" raises when no card is visible, and "cpu"
 runs only when asked for. `strict_lpc=True` (or, when it is None, the

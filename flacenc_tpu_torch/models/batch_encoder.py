@@ -1,19 +1,25 @@
 """Batched frame encoder on PyTorch (port of ``flacenc_tpu/models/batch_encoder.py``).
 
 Device half: `BatchEncoder`, an `nn.Module` standing for the JAX package's
-``build_encoder_fn(..., decisions_only=True)``. One forward pass evaluates
-every predictor candidate (constant / fixed orders 0-4 / QLPC) for every
-block, channel and stereo mode of a `(B, C, T)` batch and selects with exact
-integer bit-cost argmins that reproduce the reference's decision procedure
-(coding.rs:384-527), tie-breaking included. It returns one (B, F) int32
-decisions array laid out by `coalesce_decisions`.
+``build_encoder_fn``. One forward pass evaluates every predictor candidate
+(constant / fixed orders 0-4 / QLPC) for every block, channel and stereo
+mode of a `(B, C, T)` batch and selects with exact integer bit-cost argmins
+that reproduce the reference's decision procedure (coding.rs:384-527),
+tie-breaking included. By default it returns one (B, F) int32 decisions
+array laid out by `coalesce_decisions`; with `decisions_only=False` it also
+returns the chosen residuals (`DeviceEncoded`), and with `wire_encoded` the
+two-buffer form of those (`coalesce_encoded_small`, the int16 residuals).
 
 Host half: `BatchRunner` uploads batches (with the strict host arrays of
-`_strict_ext_arrays` in strict mode), runs the module and hands the
-decisions to the C++ packer (``native.pack_frames_recompute``), which
-rebuilds each residual from the raw blocks and writes the frames.
-`encode_with_fixed_block_size` reads a source into it; the ragged tail goes
-through the numpy oracle (``models/reference_encoder.py``).
+`_strict_ext_arrays` in strict mode), runs the module, on one device or
+split over a `parallel.mesh` of replicas, and packs the frames with one of
+three packers: "native2" (the default) hands the decisions to the C++
+packer (``native.pack_frames_recompute``), which rebuilds each residual
+from the raw blocks; "native" packs the downloaded residuals in C++
+(`pack_frames_native`); "python" builds `component` objects from them
+(`frames_from_device`). `encode_with_fixed_block_size` reads a source into
+it; the ragged tail goes through the numpy oracle
+(``models/reference_encoder.py``).
 
 Stereo candidates are indexed L=0, R=1, M=2, S=3; assignment codes are
 0=LR, 1=LS, 2=RS, 3=MS (selection order matches coding.rs:500-522).
@@ -35,18 +41,26 @@ from .. import constants, native
 from ..component.datatype import (
     BlockSizeSpec,
     ChannelAssignment,
+    Constant,
+    FixedLpc,
     Frame,
+    Lpc,
+    QuantizedParameters,
+    Residual,
     SampleRateSpec,
     SampleSizeSpec,
     Stream,
+    Verbatim,
 )
 from ..device import resolve_device
 from ..errors import Verified
 from ..ops import fixed as ops_fixed
 from ..ops import lpc as ops_lpc
+from ..ops import ref_np
 from ..ops import rice as ops_rice
 from ..ops.windows import get_window
 from ..parallel import determine_worker_count
+from ..parallel import mesh as pmesh
 from ..source import AsyncContext, FrameBuf, Source, verify_sample_range
 from . import reference_encoder
 
@@ -67,10 +81,30 @@ _CH_INFO_BY_CODE = [
 ]
 
 DEFAULT_BATCH = 64
+PACKERS = ("auto", "native2", "native", "python")
 
 # fixed column groups of the coalesced decisions row, before the variable
 # qcoefs (C*24) + rice_params (C*P) tail: assign, then 5 per-channel cols
 _WIRE_FIXED_COLS = 5
+
+
+class DeviceEncoded(NamedTuple):
+    """Per-(block, stored-channel) decisions plus the chosen residuals:
+    tensors on the device side, numpy arrays after `split_encoded`. The
+    stored-channel signals are not shipped: the host holds the blocks and
+    rebuilds M/S itself (`_slot_signals`)."""
+
+    assign: object       # (B,) int32 assignment code (stereo) or 0
+    sf_type: object      # (B, C) int32 subframe type code
+    order: object        # (B, C) int32 predictor order
+    qcoefs: object       # (B, C, MAX_LPC_ORDER) int32
+    shift: object        # (B, C) int32
+    rice_order: object   # (B, C) int32 partition order
+    rice_params: object  # (B, C, max_parts) int32
+    errors: object       # (B, C, T) int16 chosen-predictor residual, wrapped
+    fits16: object       # (B, C) bool: the residual fits int16 (else the
+                         #   host recomputes that channel, `_host_errors`)
+    sf_bits: object      # (B, C) int64 exact subframe bit counts
 
 
 class DeviceDecisions(NamedTuple):
@@ -104,6 +138,30 @@ def coalesce_decisions(dec: DeviceDecisions) -> torch.Tensor:
         dec.rice_params.reshape(B, -1),
     ]
     return torch.cat([c.to(torch.int32) for c in cols], dim=1)
+
+
+def coalesce_encoded_small(enc: DeviceEncoded) -> torch.Tensor:
+    """Every `DeviceEncoded` field but the residuals as one (B, F + C) int32
+    tensor: the decisions layout plus a trailing fits16 column group."""
+    small = coalesce_decisions(DeviceDecisions(
+        assign=enc.assign, sf_type=enc.sf_type, order=enc.order,
+        qcoefs=enc.qcoefs, shift=enc.shift, rice_order=enc.rice_order,
+        rice_params=enc.rice_params, sf_bits=enc.sf_bits,
+    ))
+    return torch.cat([small, enc.fits16.to(torch.int32)], dim=1)
+
+
+def split_encoded(wire: np.ndarray, errors: np.ndarray, nchannels: int) -> DeviceEncoded:
+    """Host-side inverse of the (`coalesce_encoded_small`, errors) pair."""
+    C = nchannels
+    dec = split_decisions(wire[:, :-C], C)
+    return DeviceEncoded(
+        assign=dec.assign, sf_type=dec.sf_type, order=dec.order,
+        qcoefs=dec.qcoefs, shift=dec.shift, rice_order=dec.rice_order,
+        rice_params=dec.rice_params, sf_bits=dec.sf_bits,
+        errors=np.asarray(errors),
+        fits16=np.ascontiguousarray(wire[:, -C:]).astype(bool),
+    )
 
 
 def split_decisions(arr: np.ndarray, nchannels: int) -> DeviceDecisions:
@@ -146,7 +204,8 @@ def _fixed_search(sub, sig: torch.Tensor, bps_v: torch.Tensor, T: int, max_p: in
     host's (order, est_bits) in `ext_fixed`) and searches Rice parameters
     for that order only; BitCount runs a full Rice search for every order
     0..max_order and picks the exact cost. Both keep the lowest order on a
-    tie. Returns (order, exact bits, estimate, RiceSearchResult)."""
+    tie. Returns (order, exact bits, estimate, RiceSearchResult, the
+    (B, K, 5, T) residuals of every order)."""
     B, K = sig.shape[:2]
     dev = sig.device
     i32, i64 = torch.int32, torch.int64
@@ -190,7 +249,7 @@ def _fixed_search(sub, sig: torch.Tensor, bps_v: torch.Tensor, T: int, max_p: in
             pick("partition_order"), params, pick("code_bits"), pick("use_rice2")
         )
     fx_bits = 8 + bps_v * fx_order + ops_rice.residual_count_bits(fx_rice)
-    return fx_order, fx_bits, fx_est, fx_rice
+    return fx_order, fx_bits, fx_est, fx_rice, errs
 
 
 def _lpc_search(sub, sig: torch.Tensor, bps_v: torch.Tensor, T: int, max_p: int,
@@ -201,7 +260,7 @@ def _lpc_search(sub, sig: torch.Tensor, bps_v: torch.Tensor, T: int, max_p: int,
     order, shift) when given; otherwise from autocorrelation + Levinson, or
     with `use_direct_mse` from the covariance solve, refined by IRLS when
     `mae_optimization_steps` > 0 (coding.rs:333-351). Returns (qcoefs,
-    order, shift, RiceSearchResult, exact bits)."""
+    order, shift, RiceSearchResult, exact bits, residuals)."""
     qlpc = sub.qlpc
     if ext_qlpc is not None:
         qcoefs, q_order, q_shift = ext_qlpc
@@ -222,18 +281,22 @@ def _lpc_search(sub, sig: torch.Tensor, bps_v: torch.Tensor, T: int, max_p: int,
         8 + bps_v * q_order64 + 4 + 5 + qlpc.quant_precision * q_order64
         + ops_rice.residual_count_bits(lpc_rice)
     )
-    return qcoefs, q_order, q_shift, lpc_rice, lpc_bits
+    return qcoefs, q_order, q_shift, lpc_rice, lpc_bits, lpc_err
 
 
 def _subframe_candidates(cfg, sig: torch.Tensor, bps_v: torch.Tensor,
                          block_size: int, window: torch.Tensor,
-                         ext_qlpc=None, ext_fixed=None) -> dict:
+                         ext_qlpc=None, ext_fixed=None,
+                         with_errors: bool = False) -> dict:
     """Evaluate all predictor candidates for candidate channels.
 
     sig: (B, K, T) int32; bps_v: (1, K) int64 bits per sample of each
     candidate; `ext_qlpc` / `ext_fixed`: the strict host arrays (see
     `_strict_ext_arrays`). Returns the per-(B, K) selection tensors of the
-    decisions layout."""
+    decisions layout; `with_errors` adds "errors", the chosen predictor's
+    residual (the fixed one unless LPC won, zeros where a predictor is off
+    or the block is too short) wrapped to int16, and "fits16", whether it
+    fits int16 unwrapped."""
     sub = cfg.subframe_coding
     B, K, T = sig.shape
     dev = sig.device
@@ -256,19 +319,23 @@ def _subframe_candidates(cfg, sig: torch.Tensor, bps_v: torch.Tensor,
     )
 
     if sub.use_fixed and not too_short:
-        fx_order, fx_bits, fx_est, fx_rice = _fixed_search(sub, sig, bps_v, T, max_p, ext_fixed)
+        fx_order, fx_bits, fx_est, fx_rice, fx_errs = _fixed_search(
+            sub, sig, bps_v, T, max_p, ext_fixed
+        )
         fx_some = fx_est < verbatim_bits
     else:
         fx_order, fx_bits, fx_some, fx_rice = zero_i, big, zero_b, no_rice
+        fx_errs = None
 
     use_lpc = sub.use_lpc and not too_short
     if use_lpc:
-        qcoefs, q_order, q_shift, lpc_rice, lpc_bits = _lpc_search(
+        qcoefs, q_order, q_shift, lpc_rice, lpc_bits, lpc_err = _lpc_search(
             sub, sig, bps_v, T, max_p, window, ext_qlpc
         )
     else:
         qcoefs = torch.zeros((B, K, ops_lpc.MAX_LPC_ORDER), dtype=i32, device=dev)
         q_order, q_shift, lpc_rice, lpc_bits = zero_i, zero_i, no_rice, big
+        lpc_err = None
 
     # ---- selection (coding.rs:384-418) ----
     baseline = torch.where(fx_some, torch.minimum(verbatim_bits, fx_bits), verbatim_bits)
@@ -286,7 +353,7 @@ def _subframe_candidates(cfg, sig: torch.Tensor, bps_v: torch.Tensor,
 
     is_lpc = sf_type == T_LPC
     order = torch.where(is_lpc, q_order, torch.where(sf_type == T_FIXED, fx_order, 0))
-    return {
+    out = {
         "sf_type": sf_type,
         "sf_bits": sf_bits,
         "order": order.to(i32),
@@ -297,11 +364,20 @@ def _subframe_candidates(cfg, sig: torch.Tensor, bps_v: torch.Tensor,
         ),
         "rice_params": torch.where(is_lpc[..., None], lpc_rice.params, fx_rice.params),
     }
+    if with_errors:
+        zeros = torch.zeros((B, K, T), dtype=i32, device=dev)
+        fx_err = zeros if fx_errs is None else torch.take_along_dim(
+            fx_errs, fx_order.to(i64)[..., None, None], dim=2
+        )[:, :, 0, :]
+        errors = torch.where(is_lpc[..., None], zeros if lpc_err is None else lpc_err, fx_err)
+        out["fits16"] = ((errors >= -32768) & (errors <= 32767)).all(dim=-1)
+        out["errors"] = errors.to(torch.int16)  # wraps, as XLA's convert does
+    return out
 
 
 class BatchEncoder(nn.Module):
     """The device program for one (config, C, bps, T): (B, C, T) int16/int32
-    blocks -> (B, F) int32 coalesced decisions.
+    blocks -> decisions, the port of ``build_encoder_fn``.
 
     `cfg` is a `config.Encoder` (or its `Verified` wrapper), the config the
     JAX package's ``build_encoder_fn`` takes; the only other
@@ -309,9 +385,16 @@ class BatchEncoder(nn.Module):
     moves it. Every predictor option of the config is covered (BitCount,
     direct MSE / IRLS, any subset of stereo modes and subframe types, 1-8
     channels, block sizes 32-32767). With `strict_lpc` the forward pass
-    takes the strict host arrays after the blocks (see `forward`). The
-    residual-shipping outputs and the upload wires of the JAX program raise
-    `NotImplementedError` naming the ROADMAP.md queue-1 item that ports
+    takes the strict host arrays after the blocks (see `forward`).
+
+    Outputs: with `decisions_only` (the default, the "native2" packer's
+    program) one (B, F) int32 `coalesce_decisions` tensor; with
+    `decisions_only=False` a `DeviceEncoded` of tensors, residuals
+    included; with `wire_encoded` (which implies residuals) the pair
+    (`coalesce_encoded_small`, (B, C, T) int16 residuals) that the "native"
+    and "python" packers download. The JAX program's upload wires
+    (`packed_wire`) and grouped round trips (`grouped`) raise
+    `NotImplementedError` naming the ROADMAP.md queue-1 item that holds
     them."""
 
     def __init__(self, cfg, nchannels: int, bps: int, block_size: int, *,
@@ -319,16 +402,13 @@ class BatchEncoder(nn.Module):
                  packed_wire=None, wire_encoded: bool = False, grouped: int = 0):
         super().__init__()
         cfg = cfg.inner if isinstance(cfg, Verified) else cfg
-        if not decisions_only or wire_encoded:
-            raise NotImplementedError(
-                "residual-shipping outputs (decisions_only=False, wire_encoded) "
-                "are ROADMAP.md queue 1, item 9"
-            )
         if packed_wire is not None or grouped:
             raise NotImplementedError(
                 "packed upload wires and grouped round trips are ROADMAP.md "
                 "queue 1, item 13"
             )
+        self.decisions_only = decisions_only and not wire_encoded
+        self.wire_encoded = wire_encoded
         self.cfg = cfg
         self.strict_lpc = strict_lpc
         self.nchannels = nchannels
@@ -350,8 +430,8 @@ class BatchEncoder(nn.Module):
             "slots", torch.from_numpy(np.stack([_SLOT0, _SLOT1], axis=-1)).long()
         )
 
-    def forward(self, blocks: torch.Tensor, *ext: torch.Tensor) -> torch.Tensor:
-        """(B, C, T) blocks -> (B, F) int32 decisions.
+    def forward(self, blocks: torch.Tensor, *ext: torch.Tensor):
+        """(B, C, T) blocks -> the output named in the class docstring.
 
         In strict mode `ext` is (qcoefs, order, shift) for every candidate
         channel, plus (fixed order, est_bits) when the fixed order is
@@ -381,6 +461,7 @@ class BatchEncoder(nn.Module):
         res = _subframe_candidates(
             self.cfg, cand, self.bps_v, T, self.window,
             ext_qlpc=ext[:3] or None, ext_fixed=ext[3:5] or None,
+            with_errors=not self.decisions_only,
         )
 
         if stereo:
@@ -407,7 +488,12 @@ class BatchEncoder(nn.Module):
         else:
             assign = torch.zeros((B,), dtype=torch.int32, device=blocks.device)
 
-        return coalesce_decisions(DeviceDecisions(assign=assign, **res))
+        if self.decisions_only:
+            return coalesce_decisions(DeviceDecisions(assign=assign, **res))
+        enc = DeviceEncoded(assign=assign, **res)
+        if self.wire_encoded:
+            return coalesce_encoded_small(enc), enc.errors
+        return enc
 
 
 # ---------------------------------------------------------------------------
@@ -445,39 +531,194 @@ def _assemble_frames(assign, nchannels, frame_numbers, sample_rate, bps,
     return frames
 
 
-def pack_frames_decisions(wire: np.ndarray, blocks: np.ndarray, frame_numbers,
-                          cfg, nchannels: int, bps: int, sample_rate: int,
-                          block_size: int, n_threads: int) -> List[Frame]:
-    """Frames from a (B, F) decisions array and the raw (B, C, T) blocks.
-
-    The C++ packer recomputes the stored channels and residuals from the
-    raw blocks on `n_threads` threads."""
-    dec = split_decisions(wire, nchannels)
-    B = dec.assign.shape[0]
+def _header_specs(assign: np.ndarray, nchannels: int, bps: int, sample_rate: int,
+                  block_size: int):
+    """The native packers' per-frame channel tags and shared header specs:
+    (ch_tag (B,), (block-size tag, extra bits, extra), (rate tag, extra bits,
+    extra), sample-size tag)."""
     if nchannels == 2:
-        ch_tag = _ASSIGN_TAGS[dec.assign]
+        ch_tag = _ASSIGN_TAGS[assign]
     else:
-        ch_tag = np.full(B, nchannels - 1, dtype=np.int32)
+        ch_tag = np.full(assign.shape[0], nchannels - 1, dtype=np.int32)
     bs = BlockSizeSpec.from_size(block_size)
     # rate 0/None means "not provided" -> the unspecified tag
     sr = (
         SampleRateSpec.from_freq(sample_rate) if sample_rate else None
     ) or SampleRateSpec.UNSPECIFIED
-    ss = SampleSizeSpec.from_bits(bps)
+    return (
+        ch_tag,
+        (bs.tag, bs.count_extra_bits(), bs.extra or 0),
+        (sr.tag, sr.count_extra_bits(), sr.extra or 0),
+        SampleSizeSpec.from_bits(bps).tag,
+    )
+
+
+def pack_frames_decisions(dec: DeviceDecisions, blocks: np.ndarray, frame_numbers,
+                          cfg, nchannels: int, bps: int, sample_rate: int,
+                          block_size: int) -> List[Frame]:
+    """Frames from numpy decisions and the raw (B, C, T) blocks ("native2").
+
+    The C++ packer recomputes the stored channels and residuals from the
+    raw blocks, on `determine_worker_count(cfg)` threads."""
+    ch_tag, bs, sr, ss = _header_specs(dec.assign, nchannels, bps, sample_rate, block_size)
     data, sizes = native.pack_frames_recompute(
         blocks, dec.assign, dec.sf_type, dec.order, dec.qcoefs, dec.shift,
         dec.rice_order, dec.rice_params, ch_tag,
         np.asarray(frame_numbers, dtype=np.int64),
-        bps, cfg.subframe_coding.qlpc.quant_precision,
-        (bs.tag, bs.count_extra_bits(), bs.extra or 0),
-        (sr.tag, sr.count_extra_bits(), sr.extra or 0),
-        ss.tag,
-        n_threads=n_threads,
+        bps, cfg.subframe_coding.qlpc.quant_precision, bs, sr, ss,
+        n_threads=determine_worker_count(cfg),
     )
     return _assemble_frames(
         dec.assign, nchannels, frame_numbers, sample_rate, bps, block_size,
         data, sizes,
     )
+
+
+def _quotients_remainders_batch(errors: np.ndarray, rice_params: np.ndarray,
+                                rice_order: np.ndarray, warmup: np.ndarray):
+    """Per-sample Rice split of a whole batch: errors (B, C, T) int32,
+    rice_params (B, C, P), rice_order and warmup (B, C) -> (quotients,
+    remainders), both (B, C, T) uint32 and zero before the warmup. numpy,
+    because torch's uint32 has no shifts."""
+    B, C, T = errors.shape
+    v64 = np.abs(errors.astype(np.int64))
+    z = ((v64 << 1) - (errors < 0)).astype(np.uint32)
+    t_idx = np.arange(T, dtype=np.int64)
+    nparts = (1 << rice_order.astype(np.int64))[..., None]  # (B, C, 1)
+    pidx = (t_idx[None, None, :] * nparts) // T
+    p_t = np.take_along_axis(rice_params, pidx, axis=2).astype(np.uint32)
+    q = z >> p_t
+    r = z & ((np.uint32(1) << p_t) - np.uint32(1))
+    warm_mask = t_idx[None, None, :] < warmup[..., None]
+    q[warm_mask] = 0
+    r[warm_mask] = 0
+    return q, r
+
+
+def _slot_signals(blocks: np.ndarray, assign: np.ndarray, nchannels: int) -> np.ndarray:
+    """The stored-channel signals, rebuilt on the host: L and R are the
+    input blocks, M and S two vector ops (coding.rs:478-484)."""
+    if nchannels != 2:
+        return np.ascontiguousarray(blocks, dtype=np.int32)
+    idx = np.stack([_SLOT0[assign], _SLOT1[assign]], axis=1)[..., None]
+    cand = _candidate_signals(blocks, 2)
+    return np.ascontiguousarray(np.take_along_axis(cand, idx, axis=1))
+
+
+def _host_errors(enc: DeviceEncoded, signal: np.ndarray) -> np.ndarray:
+    """The downloaded int16 residuals as int32, with every predicted channel
+    whose residual did not fit int16 (`fits16` false) recomputed exactly:
+    by one batched C++ call over those channels (``native.compute_errors``,
+    the kernels the recompute packer uses) when the native library loads,
+    else by the numpy oracle's kernels one channel at a time."""
+    errors = enc.errors.astype(np.int32)
+    needs_fix = (~enc.fits16) & (enc.sf_type >= T_FIXED)
+    if not needs_fix.any():
+        return errors
+    bs, cs = np.nonzero(needs_fix)
+    sf_type, order = enc.sf_type[bs, cs], enc.order[bs, cs]
+    if native.available():
+        errors[bs, cs] = native.compute_errors(
+            signal[bs, cs], (sf_type == T_LPC).astype(np.int32), order,
+            enc.qcoefs[bs, cs], enc.shift[bs, cs],
+        )
+        return errors
+    for b, c, t, o in zip(bs, cs, sf_type, order):
+        if t == T_FIXED:
+            errors[b, c] = ref_np.fixed_lpc_errors(signal[b, c])[o]
+        else:
+            errors[b, c] = ref_np.compute_error(
+                enc.qcoefs[b, c, :o].astype(np.int16), int(enc.shift[b, c]), signal[b, c]
+            )
+    return errors
+
+
+def pack_frames_native(enc: DeviceEncoded, blocks: np.ndarray, frame_numbers, cfg,
+                       nchannels: int, bps: int, sample_rate: int,
+                       block_size: int) -> List[Frame]:
+    """Frames from numpy `DeviceEncoded` outputs and the raw blocks
+    ("native"): the C++ packer writes the downloaded residuals (overflow
+    channels recomputed by `_host_errors`)."""
+    ch_tag, bs, sr, ss = _header_specs(enc.assign, nchannels, bps, sample_rate, block_size)
+    signal = _slot_signals(blocks, enc.assign, nchannels)
+    data, sizes = native.pack_frames(
+        signal, _host_errors(enc, signal), enc.sf_type, enc.order,
+        enc.qcoefs, enc.shift, enc.rice_order, enc.rice_params, ch_tag,
+        np.asarray(frame_numbers, dtype=np.int64),
+        bps, cfg.subframe_coding.qlpc.quant_precision, bs, sr, ss,
+    )
+    return _assemble_frames(
+        enc.assign, nchannels, frame_numbers, sample_rate, bps, block_size,
+        data, sizes,
+    )
+
+
+def frames_from_device(enc: DeviceEncoded, blocks: np.ndarray, frame_numbers, cfg,
+                       nchannels: int, bps: int, sample_rate: int,
+                       block_size: int) -> List[Frame]:
+    """`component` frames built from numpy `DeviceEncoded` outputs ("python",
+    the packer that needs no native library): one subframe object per
+    channel, serialized by the component model."""
+    precision = cfg.subframe_coding.qlpc.quant_precision
+    signal = _slot_signals(blocks, enc.assign, nchannels)
+    errors = _host_errors(enc, signal)
+    B, C, T = signal.shape
+    warmup = np.where(enc.sf_type >= T_FIXED, enc.order, 0)
+    qarr, rarr = _quotients_remainders_batch(errors, enc.rice_params, enc.rice_order, warmup)
+
+    frames = []
+    for b in range(B):
+        if nchannels == 2:
+            ch_info = _CH_INFO_BY_CODE[enc.assign[b]]
+        else:
+            ch_info = ChannelAssignment.independent(nchannels)
+        header = reference_encoder._new_frame_header(T, ch_info, sample_rate, bps)
+        header.set_frame_number(int(frame_numbers[b]))
+        subframes = []
+        for c in range(C):
+            bps_c = bps + ch_info.bits_per_sample_offset(c)
+            t = enc.sf_type[b, c]
+            sig = signal[b, c]
+            if t == T_CONSTANT:
+                subframes.append(Constant(T, int(sig[0]), bps_c))
+            elif t == T_VERBATIM:
+                subframes.append(Verbatim(sig, bps_c))
+            else:
+                o = int(enc.order[b, c])
+                rice_order = int(enc.rice_order[b, c])
+                residual = Residual(
+                    rice_order, T, o,
+                    enc.rice_params[b, c, :1 << rice_order].astype(np.uint8),
+                    qarr[b, c], rarr[b, c],
+                )
+                if t == T_FIXED:
+                    subframes.append(FixedLpc(sig[:o], residual, bps_c))
+                else:
+                    params = QuantizedParameters(
+                        enc.qcoefs[b, c, :o].astype(np.int16), o,
+                        int(enc.shift[b, c]), precision,
+                    )
+                    subframes.append(Lpc(sig[:o], params, residual, bps_c))
+        frames.append(Frame(header, subframes))
+    return frames
+
+
+_ASSEMBLERS = {
+    "native2": pack_frames_decisions,
+    "native": pack_frames_native,
+    "python": frames_from_device,
+}
+
+
+def resolve_packer(packer: str) -> str:
+    """The packer as the JAX package resolves it: "auto" is "native2"
+    (decisions only; the C++ packer recomputes the residuals) when the
+    native library loads, else "python"."""
+    if packer not in PACKERS:
+        raise ValueError(f"packer must be one of {PACKERS}, not {packer!r}")
+    if packer == "auto":
+        return "native2" if native.available() else "python"
+    return packer
 
 
 def _bucket_pad(chunk: np.ndarray, batch_size: int) -> np.ndarray:
@@ -566,20 +807,63 @@ class BatchResult(NamedTuple):
 
 
 class _Batch(NamedTuple):
-    """One batch in flight: host copies of its inputs and its decisions."""
+    """One batch in flight: host copies of its inputs and of its outputs."""
 
     blocks: np.ndarray       # (n, C, T) real (unpadded) blocks
     nums: np.ndarray         # (n,) frame numbers
     rate: int                # sample rate for the frame headers
     cookie: object
-    decisions: torch.Tensor  # (B, F) int32 on the host (pinned for CUDA)
-    done: Optional[torch.cuda.Event]  # recorded after the download (CUDA)
+    outputs: tuple           # the module's output tensors, whole batch, on
+                             #   the host (pinned when on a card)
+    done: list               # CUDA events recorded after the downloads
+
+
+def _mesh_device_count(mesh, batch_size: int, dev: torch.device) -> int:
+    """Devices the batch axis would be split over at this batch size (0:
+    none): an explicit mesh's size; for "auto" the visible CUDA device
+    count when `_auto_mesh` would engage it. The short-stream clamp uses it
+    so it never shrinks the batch to a size the mesh cannot split."""
+    if mesh is None:
+        return 0
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', None or a BlockMesh, not {mesh!r}")
+        n = torch.cuda.device_count() if dev.type == "cuda" else 0
+        return n if n > 1 and batch_size % n == 0 else 0
+    return mesh.size
+
+
+def _home_device(mesh, device) -> torch.device:
+    """The runner's device: an explicit mesh's first device (the mesh
+    places the batch), else `device`."""
+    if mesh is None or isinstance(mesh, str):
+        return resolve_device(device)
+    return mesh.devices[0]
+
+
+def _auto_mesh(mesh, batch_size: int, dev: torch.device):
+    """Resolve the `mesh` argument: "auto" splits the batch axis over every
+    visible CUDA device when `dev` is a card, more than one is visible and
+    the batch divides evenly (the par.rs worker-pool map); None keeps one
+    device; a `parallel.mesh.BlockMesh` is used as it is. Returns the mesh
+    or None."""
+    if isinstance(mesh, str):
+        return pmesh.block_mesh() if _mesh_device_count(mesh, batch_size, dev) else None
+    return mesh
 
 
 class BatchRunner:
     """Runs batches of blocks through one `BatchEncoder` and packs them: the
     port's stand-in for the JAX package's ``BatchPipeline``, shared by
     `encode_with_fixed_block_size` and ``parallel.encode_corpus``.
+
+    `packer` ("auto", "native2", "native" or "python", resolved by
+    `resolve_packer`) picks the module's outputs and the host assembly:
+    "native2" downloads the (B, F) decisions; "native" and "python"
+    download the `wire_encoded` pair, decisions plus fits16 and the int16
+    residuals. `mesh` ("auto", None or a `parallel.mesh.BlockMesh`, see
+    `_auto_mesh`) splits every batch over replicas of the module; each
+    shard's outputs land in their rows of one host buffer.
 
     `submit` pads a batch to `batch_size` with zero blocks, range-checks it,
     computes the strict host arrays when strict, uploads and launches it,
@@ -588,19 +872,28 @@ class BatchRunner:
     overlap. `drain` packs what is still in flight.
 
     `stats` holds wall-clock totals: submit_s (pad, range check, strict
-    arrays, upload, launch), device_wait_s (waiting for the decisions),
+    arrays, upload, launch), device_wait_s (waiting for the downloads),
     pack_s and batches."""
 
     def __init__(self, cfg, nch: int, bps: int, block_size: int, batch_size: int,
-                 device: str | torch.device = "cuda", strict_lpc: bool = False):
-        self.dev = resolve_device(device)
+                 device: str | torch.device = "cuda", strict_lpc: bool = False,
+                 packer: str = "auto", mesh="auto"):
+        self.packer = resolve_packer(packer)
+        self.dev = _home_device(mesh, device)
+        self.mesh = _auto_mesh(mesh, batch_size, self.dev)
         self.cfg, self.nch, self.bps = cfg, nch, bps
         self.block_size, self.batch_size = block_size, batch_size
-        self.encoder = BatchEncoder(cfg, nch, bps, block_size, strict_lpc=strict_lpc).to(self.dev)
+        self.encoder = BatchEncoder(
+            cfg, nch, bps, block_size, strict_lpc=strict_lpc,
+            wire_encoded=self.packer != "native2",
+        ).to(self.dev)
+        self.sharded = (
+            pmesh.shard_encoder_fn(self.encoder, self.mesh) if self.mesh is not None else None
+        )
+        self.assemble = _ASSEMBLERS[self.packer]
         self.strict_window = (
             get_window(cfg.subframe_coding.qlpc.window, block_size) if strict_lpc else None
         )
-        self.n_threads = determine_worker_count(cfg)
         self.stats = {"submit_s": 0.0, "device_wait_s": 0.0, "pack_s": 0.0, "batches": 0}
         self._inflight: List[_Batch] = []
 
@@ -613,29 +906,49 @@ class BatchRunner:
         if self.strict_window is not None:
             arrays += _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps, self.strict_window)
         inputs = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        on_cuda = self.dev.type == "cuda"
+        devices = self.mesh.devices if self.mesh is not None else (self.dev,)
+        on_cuda = any(d.type == "cuda" for d in devices)
         with torch.inference_mode():
             if on_cuda:
-                inputs = [x.pin_memory().to(self.dev, non_blocking=True) for x in inputs]
-            out = self.encoder(*inputs)
-            done = None
-            if on_cuda:
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                out = host
-        return _Batch(blocks, nums, rate, cookie, out, done)
+                inputs = [x.pin_memory() for x in inputs]
+            if self.sharded is not None:
+                shards = self.sharded.launch(*inputs)
+            else:
+                xs = [x.to(self.dev, non_blocking=True) for x in inputs]
+                shards = [(slice(0, self.batch_size), self.encoder(*xs))]
+            # every shard's outputs land in their rows of one host buffer
+            # per output, behind one event per card
+            first = shards[0][1]
+            parts = (first,) if isinstance(first, torch.Tensor) else first
+            host = [
+                torch.empty((self.batch_size,) + p.shape[1:], dtype=p.dtype, pin_memory=on_cuda)
+                for p in parts
+            ]
+            done = {}
+            for sl, out in shards:
+                outs = (out,) if isinstance(out, torch.Tensor) else out
+                for h, o in zip(host, outs):
+                    h[sl].copy_(o, non_blocking=on_cuda)
+                dev = outs[0].device
+                if dev.type == "cuda":
+                    done[dev] = torch.cuda.Event()
+                    done[dev].record(torch.cuda.current_stream(dev))
+        return _Batch(blocks, nums, rate, cookie, tuple(host), list(done.values()))
 
     def _finish(self, batch: _Batch) -> BatchResult:
         t0 = time.perf_counter()
-        if batch.done is not None:
-            batch.done.synchronize()
+        for event in batch.done:
+            event.synchronize()
         t1 = time.perf_counter()
         n = batch.blocks.shape[0]
-        frames = pack_frames_decisions(
-            batch.decisions.numpy()[:n], batch.blocks, batch.nums, self.cfg, self.nch,
-            self.bps, batch.rate, self.block_size, self.n_threads,
+        host = [h.numpy()[:n] for h in batch.outputs]
+        if self.packer == "native2":
+            enc = split_decisions(host[0], self.nch)
+        else:
+            enc = split_encoded(host[0], host[1], self.nch)
+        frames = self.assemble(
+            enc, batch.blocks, batch.nums, self.cfg, self.nch, self.bps,
+            batch.rate, self.block_size,
         )
         self.stats["device_wait_s"] += t1 - t0
         self.stats["pack_s"] += time.perf_counter() - t1
@@ -669,6 +982,8 @@ def encode_with_fixed_block_size(
     device: str | torch.device = "cuda",
     stats: Optional[dict] = None,
     strict_lpc: Optional[bool] = None,
+    packer: str = "auto",
+    mesh="auto",
 ) -> Stream:
     """Batched stream encoder on PyTorch (public entry).
 
@@ -683,10 +998,23 @@ def encode_with_fixed_block_size(
     so streams are byte-identical to it; see `resolve_strict` for the rule
     with `use_direct_mse`.
 
+    `packer`: "auto" (the default: "native2" when the native library
+    loads, else "python"), "native2" (decisions only; the C++ packer
+    recomputes the residuals from the blocks), "native" (the card ships
+    the int16 residuals, the C++ packer writes them) or "python"
+    (`component` objects built from the shipped residuals). Every packer
+    gives the same bytes.
+
+    `mesh`: "auto" (the default) splits each batch over every visible CUDA
+    device when `device` is a card, more than one is visible and the batch
+    divides evenly; a `parallel.mesh.BlockMesh` (which may repeat a device)
+    places the shards itself; None keeps one device. Blocks are
+    independent, so the mesh changes throughput, never bytes.
+
     `stats`: optional dict filled in place with wall-clock totals: read_s,
     submit_s (pad, range check, strict arrays, upload, launch),
-    device_wait_s (waiting for the decisions), pack_s, batches, frames and
-    wall_s."""
+    device_wait_s (waiting for the downloads, the residuals' included),
+    pack_s, batches, frames and wall_s."""
     cfg = config.inner if isinstance(config, Verified) else config
     strict_lpc = resolve_strict(strict_lpc, cfg)
     nch = src.channels()
@@ -700,8 +1028,14 @@ def encode_with_fixed_block_size(
         if 0 < full_blocks < batch_size:
             # short stream: clamp the padded batch to the next power of two
             # (>= 8) so padding stays < 2x; never raise the caller's size
-            batch_size = min(batch_size, max(8, 1 << (full_blocks - 1).bit_length()))
-    runner = BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc)
+            cand = max(8, 1 << (full_blocks - 1).bit_length())
+            n_dev = _mesh_device_count(mesh, batch_size, _home_device(mesh, device))
+            if n_dev:
+                # a split batch stays a positive multiple of the mesh size
+                cand = -(-max(cand, n_dev) // n_dev) * n_dev
+            batch_size = min(batch_size, cand)
+    runner = BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc,
+                         packer=packer, mesh=mesh)
     # MD5 on a worker thread behind a bounded queue (par.rs:196-277)
     context = AsyncContext(bps, nch)
 

@@ -3,8 +3,9 @@
 The packer consumes the device pipeline's decisions and the raw blocks and
 emits FLAC frame bytes in one call per batch (the bit-serial stage the
 reference implements in ``src/bitsink.rs``/``bitrepr.rs``). The batched
-path has no fallback: without the library, `pack_frames_recompute` and
-strict mode raise. The parser, the decoder's LPC synthesis and the numpy
+path has no fallback: without the library, `pack_frames_recompute`,
+`pack_frames`, `compute_errors` and strict mode raise (the "python" packer
+needs none of them). The parser, the decoder's LPC synthesis and the numpy
 oracle's strict estimates use the library when it loads and their Python
 code otherwise. The library is built on first use (``build.py``).
 """
@@ -57,6 +58,112 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+def _require():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native packer unavailable: {_load_error!r}")
+    return lib
+
+
+def pack_frames(
+    signal: np.ndarray,        # (F, C, T) int32 stored channel signals
+    errors: np.ndarray,        # (F, C, T) int32 chosen-predictor residuals
+    sf_type: np.ndarray,       # (F, C) int32
+    order: np.ndarray,         # (F, C) int32
+    qcoefs: np.ndarray,        # (F, C, 24) int32
+    shift: np.ndarray,         # (F, C) int32
+    rice_order: np.ndarray,    # (F, C) int32
+    rice_params: np.ndarray,   # (F, C, P) int32
+    ch_tag: np.ndarray,        # (F,) int32
+    frame_numbers: np.ndarray, # (F,) int64
+    bps_base: int,
+    precision: int,
+    bs_spec: Tuple[int, int, int],  # (tag, extra_bits, extra_val)
+    sr_spec: Tuple[int, int, int],
+    ss_tag: int,
+) -> Tuple[bytes, np.ndarray]:
+    """Packs a batch of frames from the stored-channel signals and the
+    residuals the device shipped ("native" packer); returns (concatenated
+    bytes, per-frame sizes). Raises when the library is missing."""
+    fn = _require().flacenc_pack_frames
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = ctypes.c_int64
+        fn.argtypes = (
+            [ctypes.POINTER(ctypes.c_int32)] * 9
+            + [ctypes.POINTER(ctypes.c_int64)]
+            + [ctypes.c_int32] * 13
+            + [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+               ctypes.POINTER(ctypes.c_int64)]
+        )
+    F, C, T = signal.shape
+    P = rice_params.shape[-1]
+
+    def c32(a):
+        return np.ascontiguousarray(a, dtype=np.int32)
+
+    signal = c32(signal); errors = c32(errors); sf_type = c32(sf_type)
+    order = c32(order); qcoefs = c32(qcoefs); shift = c32(shift)
+    rice_order = c32(rice_order); rice_params = c32(rice_params)
+    ch_tag = c32(ch_tag)
+    frame_numbers = np.ascontiguousarray(frame_numbers, dtype=np.int64)
+
+    capacity = F * (64 + C * (T * 5 + 64))
+    out = _scratch_out(capacity)
+    sizes = np.zeros(F, dtype=np.int64)
+    total = fn(
+        _ptr(signal, ctypes.c_int32), _ptr(errors, ctypes.c_int32),
+        _ptr(sf_type, ctypes.c_int32), _ptr(order, ctypes.c_int32),
+        _ptr(qcoefs, ctypes.c_int32), _ptr(shift, ctypes.c_int32),
+        _ptr(rice_order, ctypes.c_int32), _ptr(rice_params, ctypes.c_int32),
+        _ptr(ch_tag, ctypes.c_int32), _ptr(frame_numbers, ctypes.c_int64),
+        F, C, T, P, bps_base, precision,
+        bs_spec[0], bs_spec[1], bs_spec[2],
+        sr_spec[0], sr_spec[1], sr_spec[2],
+        ss_tag,
+        _ptr(out, ctypes.c_uint8), capacity,
+        _ptr(sizes, ctypes.c_int64),
+    )
+    if total < 0:
+        raise RuntimeError("native packer capacity exceeded")
+    return out[:total].tobytes(), sizes
+
+
+def compute_errors(
+    signals: np.ndarray, is_lpc: np.ndarray, order: np.ndarray,
+    qcoefs: np.ndarray, shift: np.ndarray,
+) -> np.ndarray:
+    """Batched exact residual recompute (fixed cascade / QLPC FIR) for the
+    channels whose residual did not fit int16: signals (N, T) int32 ->
+    (N, T) int32 errors. Raises when the library is missing."""
+    fn = _require().flacenc_compute_errors
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = None
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+
+    def c32(a):
+        return np.ascontiguousarray(a, dtype=np.int32)
+
+    signals = c32(signals)
+    N, T = signals.shape
+    is_lpc = c32(is_lpc); order = c32(order); shift = c32(shift)
+    qcoefs = c32(qcoefs)
+    if qcoefs.shape != (N, 24):
+        raise ValueError(f"qcoefs shape {qcoefs.shape} is not ({N}, 24)")
+    err = np.empty((N, T), np.int32)
+    fn(
+        _ptr(signals, ctypes.c_int32), N, T,
+        _ptr(is_lpc, ctypes.c_int32), _ptr(order, ctypes.c_int32),
+        _ptr(qcoefs, ctypes.c_int32), _ptr(shift, ctypes.c_int32),
+        _ptr(err, ctypes.c_int32),
+    )
+    return err
+
+
 def pack_frames_recompute(
     blocks: np.ndarray,        # (F, C, T) int32 raw input channels
     assign: np.ndarray,        # (F,) int32 stereo assignment code
@@ -86,9 +193,7 @@ def pack_frames_recompute(
     cores; 1 = sequential) into worst-case regions compacted in order
     afterward — bytes are identical either way.
     """
-    lib = _load()
-    if lib is None:
-        raise RuntimeError(f"native packer unavailable: {_load_error!r}")
+    lib = _require()
     # int16 blocks take the `16` entry point (bps<=16 fast path: raw
     # channels are sign-extended inline in C++, so no int32 copy of the
     # batch is ever materialized); any other dtype widens to int32.

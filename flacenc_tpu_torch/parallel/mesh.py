@@ -1,0 +1,184 @@
+"""Batch-axis mesh for block encoding (port of ``flacenc_tpu/parallel/mesh.py``).
+
+Frame-level data parallelism (reference: worker threads over crossbeam
+channels, ``src/par.rs:109-193``) maps to splitting the block-batch axis of
+every `(B, ...)` input into equal contiguous shards, one per mesh device,
+each run by its own `BatchEncoder` replica. Blocks are independent, so the
+hot path needs no collectives; the one cross-device reduction (total bits,
+for progress reporting) is two plain sums.
+
+A mesh may name the same device more than once: that is how a machine with
+one card, or the CPU, exercises the split.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+BLOCK_AXIS = "blocks"
+
+
+class BlockMesh:
+    """A 1-D mesh with axis `BLOCK_AXIS`: the devices the batch axis is
+    split over, in shard order."""
+
+    axis_names = (BLOCK_AXIS,)
+
+    def __init__(self, devices: Sequence):
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        self.devices: Tuple[torch.device, ...] = tuple(resolve_device(d) for d in devices)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"BlockMesh({[str(d) for d in self.devices]})"
+
+
+def block_mesh(devices: Optional[Sequence] = None) -> BlockMesh:
+    """1-D mesh over every visible CUDA device, or over `devices` (names or
+    `torch.device`s, repeats allowed); axis name "blocks"."""
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError(
+                "block_mesh() spans the visible CUDA devices and there are none; "
+                "pass devices=['cpu', ...] to build a CPU mesh"
+            )
+        devices = [torch.device("cuda", i) for i in range(n)]
+    return BlockMesh(devices)
+
+
+class ShardedEncoder:
+    """One `BatchEncoder` replica per mesh device (`shard_encoder_fn`).
+
+    `launch` splits every input's batch axis into equal contiguous shards,
+    copies shard i to device i (asynchronously from pinned memory) and runs
+    replica i on it, for every shard before waiting on any; it returns the
+    per-shard outputs with their batch slices. Calling the object returns
+    what the single-device module returns, in batch order, on the mesh's
+    first device."""
+
+    def __init__(self, encoder: torch.nn.Module, mesh: BlockMesh):
+        self.mesh = mesh
+        self.replicas = [copy.deepcopy(encoder).to(d) for d in mesh.devices]
+
+    def launch(self, *inputs: torch.Tensor) -> List[Tuple[slice, object]]:
+        n = self.mesh.size
+        B = inputs[0].shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} does not split evenly over a {n}-device mesh")
+        per = B // n
+        shards = []
+        for i, (rep, dev) in enumerate(zip(self.replicas, self.mesh.devices)):
+            sl = slice(i * per, (i + 1) * per)
+            xs = [x[sl].to(dev, non_blocking=True) for x in inputs]
+            shards.append((sl, rep(*xs)))
+        return shards
+
+    def __call__(self, *inputs: torch.Tensor):
+        outs = [out for _, out in self.launch(*inputs)]
+        dev0 = self.mesh.devices[0]
+
+        def cat(parts):
+            return torch.cat([p.to(dev0) for p in parts])
+
+        first = outs[0]
+        if isinstance(first, torch.Tensor):
+            return cat(outs)
+        fields = [cat(parts) for parts in zip(*outs)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def shard_encoder_fn(encoder: torch.nn.Module, mesh: BlockMesh) -> ShardedEncoder:
+    """Wraps a single-device `BatchEncoder` into a batch-split one over
+    `mesh`. Each shard runs the same program as the single device, so no
+    collective appears in the hot path and the outputs are identical."""
+    return ShardedEncoder(encoder, mesh)
+
+
+def total_bits_psum(sf_bits, mesh: BlockMesh) -> torch.Tensor:
+    """Total subframe bits across the mesh: each shard's bits are summed on
+    its own device, then the partials are added on the first device.
+
+    `sf_bits` is one (B, C) tensor (split in batch order like `launch`
+    splits it) or the per-shard tensors. Returns an int64 scalar tensor on
+    the mesh's first device."""
+    if isinstance(sf_bits, torch.Tensor):
+        n = mesh.size
+        if sf_bits.shape[0] % n:
+            raise ValueError(
+                f"batch {sf_bits.shape[0]} does not split evenly over a {n}-device mesh"
+            )
+        shards = list(torch.chunk(sf_bits, n, dim=0))
+    else:
+        shards = list(sf_bits)
+        if len(shards) != mesh.size:
+            raise ValueError(f"{len(shards)} shards for a {mesh.size}-device mesh")
+    partials = [
+        s.to(dev).to(torch.int64).sum() for s, dev in zip(shards, mesh.devices)
+    ]
+    dev0 = mesh.devices[0]
+    return torch.stack([p.to(dev0) for p in partials]).sum()
+
+
+def shard_corpus(paths: Sequence[str], n_hosts: int, host_id: int) -> list:
+    """Deterministic multi-host corpus sharding: each host takes a strided
+    shard of the file list (size-agnostic, deterministic, no coordination
+    needed: files are independent) and runs ``parallel.encode_corpus`` on
+    its local devices."""
+    if not 0 <= host_id < n_hosts:
+        raise ValueError(f"host_id {host_id} is not in [0, {n_hosts})")
+    return list(paths[host_id::n_hosts])
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> dict:
+    """Runs the default program with residuals (``decisions_only=False``) at
+    T = 256, B = 2·n over an n-replica mesh, and checks `total_bits_psum`
+    against the plain sum of the gathered `sf_bits`.
+
+    The mesh spans the first n devices of `device`'s type when that many
+    are visible and `device` names no index, else `device` n times. Returns
+    a summary dict (also printed)."""
+    from .. import config
+    from ..models import batch_encoder as be
+
+    dev = resolve_device(device)
+    if (dev.type == "cuda" and torch.device(device).index is None
+            and torch.cuda.device_count() >= n_devices):
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+    else:
+        devices = [dev] * n_devices
+    m = block_mesh(devices)
+
+    T = 256  # a tiny block keeps the dry run fast; the program is the same
+    B = 2 * n_devices
+    encoder = be.BatchEncoder(config.Encoder(), 2, 16, T, decisions_only=False)
+    sharded = shard_encoder_fn(encoder, m)
+    rng = np.random.default_rng(0)
+    blocks = torch.from_numpy(rng.integers(-(1 << 12), 1 << 12, (B, 2, T), dtype=np.int32))
+    with torch.inference_mode():
+        shards = sharded.launch(blocks)
+        total = total_bits_psum([enc.sf_bits for _, enc in shards], m)
+        gathered = torch.cat([enc.sf_bits.cpu() for _, enc in shards])
+    total = int(total.item())
+    plain = int(gathered.to(torch.int64).sum())
+    if total <= 0 or total != plain:
+        raise AssertionError(f"total_bits_psum gave {total}, the plain sum is {plain}")
+    summary = {
+        "devices": [str(d) for d in m.devices], "batch": B, "block_size": T,
+        "total_bits": total,
+    }
+    print(
+        f"dryrun_multichip OK: {n_devices} replicas on {summary['devices']}, "
+        f"batch {B}, total subframe bits {total}"
+    )
+    return summary

@@ -47,7 +47,7 @@ class PipelineStats:
     read_s: float = 0.0         # time inside the sources' reads
     submit_s: float = 0.0       # pad, range check, strict arrays, upload, launch
     device_wait_s: float = 0.0  # host blocked on device results
-    pack_s: float = 0.0         # host frame assembly (C++ packer)
+    pack_s: float = 0.0         # host frame assembly (the packer)
     md5_wait_s: float = 0.0     # waiting on the MD5 thread at the end
     md5_overdue: int = 0        # producer stalls on the bounded MD5 queue
     tail_frames: int = 0
@@ -118,14 +118,16 @@ def encode_corpus(
     batch_size: int = 64,
     device: str | torch.device = "cuda",
     strict_lpc: Optional[bool] = None,
+    packer: str = "auto",
+    mesh="auto",
 ) -> Tuple[Dict[str, Stream], PipelineStats]:
     """Encode many sources through shared device batches.
 
     All sources must share channels and bits per sample; sample rates may
-    differ. `device` and `strict_lpc` act as in `encode_with_fixed_block_
-    size` (the same `resolve_strict` rule, the same `BatchRunner`). Each
-    returned stream is byte-identical to the file encoded alone. Returns
-    ({name: Stream}, PipelineStats)."""
+    differ. `device`, `strict_lpc`, `packer` and `mesh` act as in
+    `encode_with_fixed_block_size` (the same `resolve_strict` rule, the
+    same `BatchRunner`). Each returned stream is byte-identical to the file
+    encoded alone. Returns ({name: Stream}, PipelineStats)."""
     cfg = config.inner if isinstance(config, Verified) else config
     strict_lpc = be.resolve_strict(strict_lpc, cfg)
     stats = PipelineStats(files=len(sources))
@@ -150,7 +152,8 @@ def encode_corpus(
     md5s = [hashlib.md5() for _ in sources]
     total_samples = [0] * len(sources)
 
-    runner = be.BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc)
+    runner = be.BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc,
+                            packer=packer, mesh=mesh)
     md5_thread = _Md5Thread(stats)
     # pending (file, frame number, block) rows per sample rate
     pending: Dict[int, List[Tuple[int, int, np.ndarray]]] = {}

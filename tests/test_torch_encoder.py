@@ -105,7 +105,6 @@ def test_split_decisions_roundtrip():
 
 
 @pytest.mark.parametrize("variant", [
-    {"decisions_only": False}, {"wire_encoded": True},
     {"packed_wire": ("d", 2)}, {"grouped": 4},
 ])
 def test_unported_variants_raise(variant):

@@ -156,3 +156,59 @@ def test_strict_stream_and_corpus_on_card(cuda):
     assert streams["a"].to_bytes() == flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 4096, device="cuda"
     ).to_bytes()
+
+
+def _stereo(n, bps=16, noise=0.01):
+    x = np.zeros(2 * n, np.int32)
+    x[0::2] = sigen.Sine(97, 0.6).noise_with_seed(1, noise).to_vec_quantized(bps, n)
+    x[1::2] = sigen.Sine(98, 0.6).noise_with_seed(2, noise).to_vec_quantized(bps, n)
+    return x
+
+
+@pytest.mark.parametrize("bps,noise", [(16, 0.01), (24, 0.2)], ids=["cd", "beyond_int16"])
+def test_device_encoded_matches_cpu(cuda, bps, noise):
+    """`decisions_only=False` on the card equals the CPU field by field,
+    residuals and fits16 included (the 24-bit noise overflows int16)."""
+    x = _stereo(8 * 1024, bps, noise)
+    blocks = torch.from_numpy(x.reshape(8, 1024, 2).transpose(0, 2, 1).copy())
+    enc = tbe.BatchEncoder(config.Encoder(), 2, bps, 1024, decisions_only=False)
+    cpu = enc(blocks)
+    gpu = enc.to(cuda)(blocks.to(cuda))
+    for field, a, b in zip(cpu._fields, cpu, gpu):
+        assert torch.equal(a, b.cpu()), field
+    if bps == 24:
+        assert not bool(cpu.fits16.all())
+
+
+@pytest.mark.parametrize("packer", ["native", "python"])
+def test_residual_packers_on_card(cuda, packer):
+    x = _stereo(6 * 2048 + 77, 24, 0.2)
+    cfg = config.Encoder().into_verified()
+    kw = dict(batch_size=4, device="cuda")
+    got = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 24, 96000), 2048, packer=packer, **kw).to_bytes()
+    assert got == flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 24, 96000), 2048, packer="native2", **kw).to_bytes()
+
+
+def test_mesh_of_replicas_on_one_card(cuda):
+    from flacenc_tpu_torch.parallel import mesh
+
+    x = _stereo(9 * 4096 + 5)
+    cfg = config.Encoder().into_verified()
+    m = mesh.block_mesh([cuda, cuda])
+    before = rice_tables.launches
+    got = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=m).to_bytes()
+    assert rice_tables.launches - before == 2 * 3 * 2  # 3 batches x 2 shards x 2 per forward
+    assert got == flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=None).to_bytes()
+    assert mesh.dryrun_multichip(2)["total_bits"] > 0
+
+
+def test_fuzz_tiers_on_card(cuda):
+    from flacenc_tpu_torch import fuzz
+
+    assert fuzz.run(range(5), strict=True)["cases"] == 5
+    out = fuzz.run(range(10))
+    assert out["cases"] == 10 and all(d["strict_equal"] for d in out["divergences"])

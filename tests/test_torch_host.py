@@ -328,3 +328,126 @@ def test_native_library_builds_once_under_concurrency(tmp_path, monkeypatch):
     assert tbuild.library_path(tbuild.DEC_SRC, "flacenc_torch_decoder") == paths[0]
     # the packer's library lives in the port's build directory, not beside its source
     assert os.path.dirname(tbuild.library_path(tbuild.SRC, "x")) == str(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# component.verify and component.serde: the cases of tests/test_verify.py and
+# tests/test_serde.py on both packages, with the same outcomes and dumps
+# ---------------------------------------------------------------------------
+
+from flacenc_tpu import errors as jerrors  # noqa: E402
+from flacenc_tpu.component import datatype as jdatatype  # noqa: E402
+from flacenc_tpu.component import serde as jserde  # noqa: E402
+from flacenc_tpu.component import verify as jverify  # noqa: E402
+from flacenc_tpu_torch import errors as terrors  # noqa: E402
+from flacenc_tpu_torch.component import datatype as tdatatype  # noqa: E402
+from flacenc_tpu_torch.component import serde as tserde  # noqa: E402
+from flacenc_tpu_torch.component import verify as tverify  # noqa: E402
+from flacenc_tpu_torch.models import reference_encoder as treference  # noqa: E402
+from flacenc_tpu_torch.source import MemSource as TMemSource  # noqa: E402
+
+_PKG = {
+    "jax": (jconfig, jreference, JMemSource, jverify, jserde, jdatatype, jerrors.VerifyError),
+    "port": (tconfig, treference, TMemSource, tverify, tserde, tdatatype, terrors.VerifyError),
+}
+
+
+def _component_stream(pkg, n=3000, square=False):
+    cfg_mod, ref, mem, *_ = _PKG[pkg]
+    x = np.zeros(2 * n, np.int32)
+    x[0::2] = jsigen.Sine(90, 0.4).noise_with_seed(1, 0.02).to_vec_quantized(16, n)
+    second = jsigen.Square(70, 0.3) if square else jsigen.Sine(91, 0.4)
+    x[1::2] = second.noise_with_seed(2, 0.02).to_vec_quantized(16, n)
+    return ref.encode_with_fixed_block_size(
+        cfg_mod.Encoder().into_verified(), mem(x, 2, 16, 44100), 1024
+    )
+
+
+def _random_residual(pkg, seed, warmup):
+    """tests/test_component.py's make_random_residual, in either package."""
+    rng = np.random.default_rng(seed)
+    block_size = 4096
+    partition_order = int(rng.integers(0, 5))
+    params = rng.integers(0, 15, 1 << partition_order).astype(np.uint8)
+    ps = np.repeat(params.astype(np.uint32), block_size >> partition_order)
+    quotients = rng.integers(0, 16, block_size).astype(np.uint32)
+    remainders = (rng.integers(0, 1 << 20, block_size).astype(np.uint32)
+                  & ((np.uint32(1) << ps) - 1)).astype(np.uint32)
+    quotients[:warmup] = 0
+    remainders[:warmup] = 0
+    return _PKG[pkg][5].Residual(partition_order, block_size, warmup, params, quotients, remainders)
+
+
+def _verify_outcome(pkg, case):
+    """(raised, message) of one tests/test_verify.py case."""
+    V, VerifyError = _PKG[pkg][3], _PKG[pkg][6]
+    try:
+        if case == "stream_verifies":
+            V.verify_stream(_component_stream(pkg))
+        elif case == "residual_ok":
+            V.verify_residual(_random_residual(pkg, 0, 4))
+        elif case == "residual_warmup_corrupt":
+            res = _random_residual(pkg, 0, 4)
+            res.quotients[0] = 5
+            V.verify_residual(res)
+        elif case == "residual_remainder_overflow":
+            res = _random_residual(pkg, 1, 0)
+            res.remainders[10] = 1 << int(res.rice_params[0])
+            V.verify_residual(res)
+        elif case == "frame_stale_bitstream":
+            frame = _component_stream(pkg).frames()[0]
+            frame.precompute_bitstream()
+            V.verify_frame(frame)
+            frame.precomputed_bitstream = frame.precomputed_bitstream[:-1] + b"\x00"
+            V.verify_frame(frame)
+        elif case == "stream_bad_frame_numbers":
+            stream = _component_stream(pkg)
+            stream.frames()[1].header_mut().set_frame_number(5)
+            V.verify_stream(stream)
+        elif case == "lpc_coef_precision":
+            lpc = [s for f in _component_stream(pkg).frames() for s in f.subframes()
+                   if isinstance(s, _PKG[pkg][5].Lpc)]
+            assert lpc, "no LPC subframe"
+            lpc[0].parameters.coefs[0] = 1 << 14  # >= 2^(precision-1)
+            V.verify_subframe(lpc[0])
+    except VerifyError as e:
+        return True, str(e)
+    return False, None
+
+
+@pytest.mark.parametrize("case", [
+    "stream_verifies", "residual_ok", "residual_warmup_corrupt",
+    "residual_remainder_overflow", "frame_stale_bitstream", "stream_bad_frame_numbers",
+    "lpc_coef_precision",
+])
+def test_verify_outcomes_equal(case):
+    got, exp = _verify_outcome("port", case), _verify_outcome("jax", case)
+    assert got == exp
+    assert got[0] == (case not in ("stream_verifies", "residual_ok"))
+
+
+def test_serde_dict_round_trip_equal():
+    import json
+
+    s_t, s_j = _component_stream("port", 2600, True), _component_stream("jax", 2600, True)
+    d_t, d_j = tserde.stream_to_dict(s_t), jserde.stream_to_dict(s_j)
+    assert json.dumps(d_t, sort_keys=True) == json.dumps(d_j, sort_keys=True)
+    assert tserde.stream_from_dict(d_t).to_bytes() == s_t.to_bytes() == s_j.to_bytes()
+    # each package loads the other's dump
+    assert tserde.stream_from_dict(d_j).to_bytes() == jserde.stream_from_dict(d_t).to_bytes()
+
+
+def test_serde_dump_with_metadata_and_cache_equal(tmp_path):
+    paths = {}
+    for pkg in ("port", "jax"):
+        datatype, serde = _PKG[pkg][5], _PKG[pkg][4]
+        s = _component_stream(pkg, 2600, True)
+        s.add_metadata_block(datatype.MetadataBlock.new_unknown(4, b"\x01\x02\x03"))
+        for f in s.frames():
+            f.precompute_bitstream()
+        paths[pkg] = tmp_path / f"{pkg}.json"
+        serde.dump_stream(s, str(paths[pkg]), include_bitstream_cache=True)
+        s2 = serde.load_stream(str(paths[pkg]))
+        assert s2.to_bytes() == s.to_bytes()
+        assert s2.frames()[0].precomputed_bitstream is not None
+    assert paths["port"].read_text() == paths["jax"].read_text()

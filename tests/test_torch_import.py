@@ -37,6 +37,34 @@ streams, _ = flacenc_tpu_torch.encode_corpus(
 assert streams["a"].frame_count() == 3
 """
 
+_PATHS_PROBE = """
+import numpy as np
+import flacenc_tpu_torch
+from flacenc_tpu_torch import config, fuzz, sigen
+from flacenc_tpu_torch.component.serde import stream_from_dict, stream_to_dict
+from flacenc_tpu_torch.component.verify import verify_stream
+from flacenc_tpu_torch.parallel import mesh
+from flacenc_tpu_torch.source import MemSource
+
+n = 5000
+x = np.zeros(2 * n, np.int32)
+x[0::2] = sigen.Sine(128, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
+x[1::2] = sigen.Sine(130, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
+out = set()
+for packer, m in (("native", None), ("python", None), ("native2", mesh.block_mesh(["cpu"] * 2))):
+    s = flacenc_tpu_torch.encode_with_fixed_block_size(
+        config.Encoder(), MemSource(x, 2, 16, 44100), 1024, batch_size=4, device="cpu",
+        packer=packer, mesh=m,
+    )
+    verify_stream(s)
+    out.add(s.to_bytes())
+    if packer == "python":  # component frames: the dict holds every field
+        assert stream_from_dict(stream_to_dict(s)).to_bytes() == s.to_bytes()
+assert len(out) == 1
+assert fuzz.one_device_case(3, device="cpu") is None
+mesh.dryrun_multichip(2, device="cpu")
+"""
+
 _CLI_PROBE = """
 import numpy as np
 from flacenc_tpu_torch.wav import write_wav
@@ -70,6 +98,10 @@ def _run_probe(code, cwd):
 
 def test_import_and_cpu_encode_leave_jax_out(tmp_path):
     _run_probe(_PROBE, tmp_path)
+
+
+def test_packers_mesh_fuzz_and_verify_leave_jax_out(tmp_path):
+    _run_probe(_PATHS_PROBE, tmp_path)
 
 
 def test_cli_encode_and_decode_leave_jax_out(tmp_path):
