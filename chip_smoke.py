@@ -27,15 +27,27 @@ the card, each at a size users run:
 - a mesh of two replicas on the card (60 s CD stereo, equal to one
   device's stream), `total_bits_psum` and `dryrun_multichip(2)`;
 - the device fuzz tier: 100 default-mode and 25 strict cases at block 512
-  against the numpy oracle.
+  against the numpy oracle;
+- the upload wires, each forced on 60 s of CD stereo whose content takes
+  it ("d" delta16, "w" fixed width, "r" rice, "m" mid/side rice), the rice
+  wire on 60 s of 24/96, strict mode under a packed wire, and
+  FLACENC_FETCH_GROUP=4 grouped round trips, each stream equal to the raw
+  upload's.
 
-Every path decodes losslessly with two decoders and its MD5 matches; one
-batch of its blocks gives the same decisions (on the residual packers'
-paths every output, residuals included) on the card as on the CPU; and
-the Rice kernel's launch count equals what the config implies. Every
-failure raises; the script exits 0 only when every phase passed. Its last
-line is one JSON object naming the card; the line before it lists each
-kernel with its launches on every path and its times.
+Every encode runs through the port's program registry: on the card each
+forward is a captured CUDA graph replayed batch after batch (the direct
+MSE and IRLS forwards, which sync, run eagerly), and the main path runs the
+upload-wire racer. Every path decodes losslessly with two decoders and its
+MD5 matches; one batch of its blocks gives the same decisions (on the
+residual packers' paths every output, residuals included) on the card as
+on the CPU; the Rice kernel's runs, as the card counts them (each run adds
+one to a counter in device memory, inside graph replays too), equal what
+the config implies for the batch forwards the run made (a capture's eager
+warm-up forward counts as one); and at the end
+every captured graph's replay equals its module's eager forward on the
+same batch. Every failure raises; the script exits 0 only when every phase
+passed. Its last line is one JSON object naming the card; the line before
+it lists each kernel with its launches on every path and its times.
 
 It needs a CUDA card (exits non-zero without one) and imports neither JAX
 nor the JAX package. `--kernel-only` stops after the kernel checks;
@@ -249,18 +261,30 @@ def check_kernel(rice_tables, finest_partition_order, dev):
         rc = lib.flacenc_rice_cost_tables_transpose(
             e.data_ptr(), w.data_ptr(), out.data_ptr(), 256, 4096, 6,
             rice_tables.launch_plan(4096, 6, 4).parts_per_block,  # its plan for this shape
-            torch.cuda.current_stream().cuda_stream)
+            None, torch.cuda.current_stream().cuda_stream)  # no run counter
         if rc:
             raise RuntimeError(f"transpose kernel launch failed: {rc}")
 
     transpose()
     if not torch.equal(out, plain()):
         raise AssertionError("the transpose kernel differs from the plain version")
+
+    def uncounted():  # the wrapper's kernel without its run counter: what counting costs
+        rc = lib.flacenc_rice_cost_tables_mma(
+            e.data_ptr(), w.data_ptr(), out.data_ptr(), 256, 4096, 6, None,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"mma kernel launch failed: {rc}")
+
+    uncounted()
+    if not torch.equal(out, plain()):
+        raise AssertionError("the mma kernel without a counter differs from the plain version")
     times = {
         "ms": cuda_ms(kernel),
         "cold_ms": cuda_ms_rotating(cold),
         "plain_ms": cuda_ms(plain),
         "transpose_ms": cuda_ms(transpose),
+        "uncounted_ms": cuda_ms(uncounted),
     }
     bound = kernel_bound_ms(256, 4096, 6)
     times.update(max_abs_err=max_err, bound_ms=bound, bound_by="bytes",
@@ -269,7 +293,8 @@ def check_kernel(rice_tables, finest_partition_order, dev):
           f"{times['ms']} ms, L2-cold {times['cold_ms']} ms, bound {bound} ms (bytes), "
           f"share of bound warm {times['share_warm']} cold {times['share_cold']}; "
           f"plain {times['plain_ms']} ms; the transpose kernel at this shape "
-          f"{times['transpose_ms']} ms; eager with host launch: kernel "
+          f"{times['transpose_ms']} ms; without the run counter {times['uncounted_ms']} ms; "
+          f"eager with host launch: kernel "
           f"{eager_ms(kernel)} ms ({card_line()})")
     return times
 
@@ -401,6 +426,34 @@ def rice_per_forward(cfg, block_size: int) -> int:
     return fixed + (1 if sub.use_lpc else 0)
 
 
+class Counts:
+    """Rice kernel runs, as the card counts them, and the registry's batch
+    forwards since the object was made: the card's counter is set to 0
+    here, just before a path runs, and both are read just after it."""
+
+    def __init__(self):
+        from flacenc_tpu_torch.models import batch_encoder as tbe
+        from flacenc_tpu_torch.ops import rice_tables
+
+        self._tbe, self._rice = tbe, rice_tables
+        rice_tables.reset_launches()
+        self._forwards = tbe.PROGRAM_COUNTS["forwards"]
+
+    def read(self):
+        return self._rice.launches(), self._tbe.PROGRAM_COUNTS["forwards"] - self._forwards
+
+
+def check_launches(name, launches, forwards, per_forward, batch_forwards) -> None:
+    """The card counted `per_forward` Rice kernel runs for every batch
+    forward of the run (graph replays, eager forwards, and a capture's
+    warm-up), and the run made at least one forward per batch and shard."""
+    if launches == 0 or launches != per_forward * forwards or forwards < batch_forwards:
+        raise AssertionError(
+            f"{name}: rice_cost_tables launched {launches} times in {forwards} forwards "
+            f"({per_forward} per forward; {batch_forwards} batch forwards at least)"
+        )
+
+
 def first_batch(x, channels: int, block_size: int, batch: int = 64):
     """The first `batch` full blocks of interleaved `x` as (B, C, T) int32."""
     import numpy as np
@@ -472,33 +525,30 @@ class Phases:
         self.launches = {}
 
     def stream(self, name, cfg, x, channels, bps, rate, *, block_size=4096, strict=None,
-               packer="auto", mesh="auto"):
+               packer="auto", mesh="auto", upload_pack="env", stats=None):
         """Drive `encode_with_fixed_block_size` on the card once with the
         launch count reset just before and read just after; returns the
-        stream's bytes. A mesh of n replicas launches n forwards a batch."""
+        stream's bytes (and fills `stats`). A mesh of n replicas runs n
+        forwards a batch."""
         import flacenc_tpu_torch
         from flacenc_tpu_torch.models import batch_encoder as tbe
         from flacenc_tpu_torch.source import MemSource
-        from flacenc_tpu_torch.ops import rice_tables
 
         check_decisions(cfg, first_batch(x, channels, block_size), bps, self.dev,
                         strict=bool(strict), residuals=packer in ("native", "python"))
-        stats = {}
-        rice_tables.launches = 0
+        stats = {} if stats is None else stats
+        counts = Counts()
         t0 = time.perf_counter()
         stream = flacenc_tpu_torch.encode_with_fixed_block_size(
             cfg, MemSource(x, channels, bps, rate), block_size, device=self.dev,
-            stats=stats, strict_lpc=strict, packer=packer, mesh=mesh,
+            stats=stats, strict_lpc=strict, packer=packer, mesh=mesh, upload_pack=upload_pack,
         )
         wall = time.perf_counter() - t0
-        launches = rice_tables.launches
+        launches, forwards = counts.read()
         per_forward = rice_per_forward(cfg, block_size)
         shards = max(1, tbe._mesh_device_count(mesh, 64, self.dev))
-        if launches == 0 or launches != per_forward * stats["batches"] * shards:
-            raise AssertionError(
-                f"{name}: rice_cost_tables launched {launches} times for "
-                f"{stats['batches']} batches x {shards} shards x {per_forward} per forward"
-            )
+        check_launches(name, launches, forwards, per_forward, stats["batches"] * shards)
+        stats["forwards"] = forwards
         t0 = time.perf_counter()
         data = stream.to_bytes()  # the "python" packer's frames serialize here
         stats["serialize_s"] = time.perf_counter() - t0
@@ -523,7 +573,8 @@ class Phases:
         }))
         print(f"{name}: decoded losslessly by both decoders, MD5 matches, card decisions "
               f"== CPU decisions, launches {launches} == {per_forward} x "
-              f"{stats['batches']} batches x {shards} shards")
+              f"{stats.get('forwards', stats['batches'] * shards)} forwards "
+              f"({stats['batches']} batches x {shards} shards, captures' warm-ups included)")
 
 
 def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None:
@@ -550,7 +601,6 @@ def corpus_phase(phases: Phases, cfg, workdir: str) -> None:
     on the card; each stream equals the file encoded alone."""
     import flacenc_tpu_torch
     from flacenc_tpu_torch.wav import WavFileSource, write_wav
-    from flacenc_tpu_torch.ops import rice_tables
 
     files = [(240, 44100), (30, 48000), (95.5, 44100), (45.25, 48000),
              (120, 44100), (61, 48000), (33.3, 44100), (180, 48000)]
@@ -562,14 +612,13 @@ def corpus_phase(phases: Phases, cfg, workdir: str) -> None:
         audio.append((path, x))
     check_decisions(cfg, first_batch(audio[0][1], 2, 4096), 16, phases.dev)
     sources = [(path, WavFileSource(path)) for path, _ in audio]
-    rice_tables.launches = 0
+    counts = Counts()
     t0 = time.perf_counter()
     streams, stats = flacenc_tpu_torch.encode_corpus(sources, cfg, 4096, device=phases.dev)
     wall = time.perf_counter() - t0
-    launches = rice_tables.launches
+    launches, forwards = counts.read()
     per_forward = rice_per_forward(cfg, 4096)
-    if launches == 0 or launches != per_forward * stats.batches:
-        raise AssertionError(f"corpus: {launches} launches for {stats.batches} batches")
+    check_launches("corpus", launches, forwards, per_forward, stats.batches)
     nbytes = 0
     for path, x in audio:
         data = streams[path].to_bytes()
@@ -592,7 +641,6 @@ def cli_phase(phases: Phases, workdir: str, extra_args=()) -> None:
 
     from flacenc_tpu_torch.wav import read_wav, write_wav
     from flacenc_tpu_torch import cli
-    from flacenc_tpu_torch.ops import rice_tables
 
     x = tone_audio(30, seed=7)
     wav = os.path.join(workdir, "cli_in.wav")
@@ -600,17 +648,16 @@ def cli_phase(phases: Phases, workdir: str, extra_args=()) -> None:
     back = os.path.join(workdir, "cli_back.wav")
     write_wav(wav, x, 2, 16, 44100)
     check_decisions(default_config(), first_batch(x, 2, 4096), 16, phases.dev)
-    rice_tables.launches = 0
+    counts = Counts()
     t0 = time.perf_counter()
     rc = cli.main(["encode", wav, "-o", flac, *extra_args])
     wall = time.perf_counter() - t0
-    launches = rice_tables.launches
+    launches, forwards = counts.read()
     if rc != 0:
         raise AssertionError(f"cli encode exited {rc}")
     batches = -(-(len(x) // 2 // 4096) // 64)
     per_forward = rice_per_forward(default_config(), 4096)
-    if launches != per_forward * batches:
-        raise AssertionError(f"cli: {launches} launches for {batches} batches")
+    check_launches("cli", launches, forwards, per_forward, batches)
     if cli.main(["decode", flac, "-o", back]) != 0:
         raise AssertionError("cli decode failed")
     samples, channels, bps, rate = read_wav(back)
@@ -757,7 +804,7 @@ def fuzz_phase(phases: Phases, default_cases: int = 100, strict_cases: int = 25)
 
     out = {}
     with timed(f"e (device fuzz, {default_cases} default + {strict_cases} strict cases)"):
-        rice_tables.launches = 0
+        rice_tables.reset_launches()
         for strict, n in ((False, default_cases), (True, strict_cases)):
             r = fuzz.run(range(n), strict=strict, device=phases.dev)
             seeds = [d["seed"] for d in r["divergences"]]
@@ -767,9 +814,164 @@ def fuzz_phase(phases: Phases, default_cases: int = 100, strict_cases: int = 25)
             print(f"fuzz {'strict' if strict else 'default'} tier: {r['cases']} cases in "
                   f"{r['seconds']:.2f} s, {len(seeds)} divergences (each resolved by strict "
                   f"mode), seeds {seeds}")
-        if rice_tables.launches == 0:
+        launches = rice_tables.launches()
+        if launches == 0:
             raise AssertionError("fuzz: the Rice kernel was never launched")
-        phases.launches["fuzz"] = rice_tables.launches
+        phases.launches["fuzz"] = launches
+    return out
+
+
+def walk_audio(seconds: int, seed: int):
+    """Interleaved 16-bit stereo random walks (uniform steps in [-127, 127]):
+    deltas spread evenly over 8 bits, where the fixed-width wire beats rice."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = seconds * 44100
+    x = np.empty(2 * n, np.int32)
+    for ch in range(2):
+        walk = np.cumsum(rng.integers(-127, 128, n)) + 30000
+        # reflected off +-30000, so every step keeps its size
+        x[ch::2] = np.abs(walk % 120000 - 60000) - 30000
+    return x
+
+
+def correlated_audio(seconds: int, seed: int):
+    """Interleaved 16-bit stereo whose right channel is the left plus noise
+    of +-30: the side plane is small, so the mid/side wire wins."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    left = tone_audio(seconds, seed, channels=1)
+    x = np.empty(2 * left.size, np.int32)
+    x[0::2] = left
+    x[1::2] = np.clip(left + rng.integers(-30, 31, left.size), -32768, 32767)
+    return x
+
+
+def wire_kinds(stats) -> set:
+    """The upload wire kinds a run's batches took (None for raw PCM)."""
+    import ast
+
+    return {None if k == "None" else ast.literal_eval(k)[0] for k in stats["wire_batches"]}
+
+
+def wire_phases(phases: Phases) -> None:
+    """f. Each upload wire forced on 60 s of CD stereo whose content takes
+    it; g. the rice wire on 60 s of 24/96; h. strict mode under a packed
+    wire; i. FLACENC_FETCH_GROUP=4. Each stream equals the raw upload's."""
+    dev, default = phases.dev, default_config()
+    cases = [
+        ("f", "wire d (delta16)", cd_audio(60, seed=30), 16, 44100, "delta", "d", None),
+        ("f", "wire w (fixed width)", walk_audio(60, seed=31), 16, 44100, True, "w", None),
+        ("f", "wire r (rice)", cd_audio(60, seed=20), 16, 44100, True, "r", None),
+        ("f", "wire m (mid/side rice)", correlated_audio(60, seed=33), 16, 44100, True, "m",
+         None),
+        ("g", "wire r 24/96", tone_audio(60, seed=34, rate=96000, bps=24), 24, 96000, True, "r",
+         None),
+        ("h", "strict + packed wire", cd_audio(60, seed=24), 16, 44100, True, "r", True),
+    ]
+    for label, name, x, bps, rate, up, kind, strict in cases:
+        with timed(f"{label} ({name}, 60 s)"):
+            stats = {}
+            got = phases.stream(name, default, x, 2, bps, rate, strict=strict, upload_pack=up,
+                                stats=stats)
+            if wire_kinds(stats) != {kind}:
+                raise AssertionError(f"{name}: batches took wires {stats['wire_batches']}")
+            raw = encode_bytes(dev, default, x, 2, bps, rate, upload_pack=False,
+                               strict_lpc=strict)
+            if got != raw:
+                raise AssertionError(f"{name}: bytes differ from the raw upload's")
+            print(f"{name}: every batch on {kind}, bytes == raw upload "
+                  f"({stats['wire_batches']})")
+    with timed("i (FLACENC_FETCH_GROUP=4, 60 s CD)"):
+        x = cd_audio(60, seed=36)
+        os.environ["FLACENC_FETCH_GROUP"] = "4"
+        try:
+            stats = {}
+            got = phases.stream("grouped G=4", default, x, 2, 16, 44100, upload_pack=False,
+                                stats=stats)
+        finally:
+            os.environ["FLACENC_FETCH_GROUP"] = "1"
+        if stats["grouped_batches"] != stats["batches"]:
+            raise AssertionError(f"grouped: {stats['grouped_batches']} of {stats['batches']} "
+                                 "batches went through groups")
+        if got != encode_bytes(dev, default, x, 2, 16, 44100, upload_pack=False):
+            raise AssertionError("grouped: bytes differ from one batch per round trip")
+        print(f"grouped G=4: {stats['grouped_batches']} batches in groups, bytes == ungrouped")
+        del os.environ["FLACENC_FETCH_GROUP"]
+
+
+def graph_checks(dev) -> dict:
+    """Every captured program of the registry: its capture's check (the
+    first replay equal to the eager warm-up) held, and one more replay on
+    the batch in its static inputs equals its module's eager forward on
+    them, and the card counts the Rice kernel runs of one replay. Then the
+    main path's raw program: host ms of one replay call (the inputs' copy
+    and the replay enqueued) against one eager forward's enqueue, and
+    device ms of a replay. Launches made here are not counted."""
+    import statistics
+
+    import torch
+
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+    from flacenc_tpu_torch.ops import rice_tables
+
+    progs = [p for p in tbe._PROGRAMS.values() if p.capture]
+    keys = []
+    with torch.inference_mode():
+        for p in progs:
+            if not p.checked:
+                raise AssertionError(f"capture check failed for {p.key[5:]}")
+            rice_tables.reset_launches()
+            p.graph.replay()
+            rice_per_replay = rice_tables.launches()
+            if rice_per_replay != p.batches * rice_per_forward(p.module.cfg, p.key[3]):
+                raise AssertionError(f"{p.key[5:]}: {rice_per_replay} Rice runs in one replay")
+            replayed = p.static_out
+            replayed = (replayed.clone() if isinstance(replayed, torch.Tensor)
+                        else tuple(t.clone() for t in replayed))
+            eager = p.module(*p.static_in)
+            if not tbe._outputs_equal(replayed, eager):
+                raise AssertionError(f"graph replay != eager forward for {p.key[5:]}")
+            keys.append({"packer": p.key[5], "wire": p.key[6], "shapes": p.key[7],
+                         "replica": p.key[9], "grouped": p.key[10],
+                         "rice_per_replay": rice_per_replay})
+    torch.cuda.synchronize(dev)
+    print(f"graphs: {len(progs)} captured keys, each replay == its eager forward on one batch "
+          f"({len(tbe._PROGRAMS) - len(progs)} eager keys): " + json.dumps(keys, default=str))
+
+    main = [p for p in progs if p.key[:4] == (default_config().to_toml(), 2, 16, 4096)
+            and p.key[5:7] == ("native2", None) and p.key[7][0][0][0] == 64
+            and not (p.key[4] or p.key[9] or p.key[10])]
+    if not main:
+        raise AssertionError("the main path's raw program was not captured")
+    prog = main[0]
+    host_in = [x.cpu().pin_memory() for x in prog.static_in]
+    replay_ms, eager_ms_, device_ms = [], [], []
+    with torch.inference_mode():
+        for _ in range(20):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            prog(*host_in)
+            replay_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            prog.module(*prog.static_in)
+            eager_ms_.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.graph.replay()
+            end.record()
+            end.synchronize()
+            device_ms.append(start.elapsed_time(end))
+    out = {"replay_host_ms": statistics.median(replay_ms),
+           "eager_host_ms": statistics.median(eager_ms_),
+           "replay_device_ms": statistics.median(device_ms),
+           "captures": len(progs), "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    print("graph vs eager at (64, 2, 4096), default config, median of 20: " + json.dumps(out)
+          + f" ({card_line()})")
     return out
 
 
@@ -777,6 +979,7 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     """Every encode path of the port, through its public entries, on
     `phases.dev`, each checked as the module docstring says."""
     import numpy as np
+    import torch
 
     import flacenc_tpu_torch
     from flacenc_tpu_torch import config, sigen
@@ -789,8 +992,20 @@ def run_paths(phases: Phases, cli_args=()) -> None:
         default, MemSource(cd_audio(10, seed=1), 2, 16, 44100), 4096, device=dev
     )
 
-    # 4. the main path: 240 s of 16-bit / 44.1 kHz stereo on the card
-    phases.stream("main path", default, cd_audio(240, seed=0), 2, 16, 44100)
+    # 4. the main path: 240 s of 16-bit / 44.1 kHz stereo on the card, the
+    # upload-wire racer on, every forward a graph replay
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    phases.stream("main path", default, cd_audio(240, seed=0), 2, 16, 44100, stats=stats)
+    print(f"main path: wire_counts {stats['wire_batches']}, grouped_batches "
+          f"{stats['grouped_batches']}, captures {stats['captures']} in {stats['capture_s']} s, "
+          f"peak device memory {torch.cuda.max_memory_allocated(dev)} B ({phases.card})")
+    # the same audio again, every program the racer visits already captured
+    stats = {}
+    phases.stream("main path, warm registry", default, cd_audio(240, seed=0), 2, 16, 44100,
+                  stats=stats)
+    print(f"main path, warm registry: wire_counts {stats['wire_batches']}, captures "
+          f"{stats['captures']}")
 
     # 5. against the numpy oracle: 8 full blocks plus a ragged tail
     oracle_equal(dev, "sigen stereo clip", default, sigen_clip(8 * 4096 + 1234), 2, 4096)
@@ -845,6 +1060,10 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     residual_packer_phases(phases)
     mesh_phase(phases)
     fuzz_phase(phases)
+
+    # 14. the upload wires and grouped round trips, then every graph
+    wire_phases(phases)
+    phases.graphs = graph_checks(dev)
 
 
 def main(argv=None) -> int:
@@ -903,6 +1122,7 @@ def main(argv=None) -> int:
         "cold_ms": times["cold_ms"],
         "plain_ms": times["plain_ms"],
         "transpose_ms": times["transpose_ms"],
+        "uncounted_ms": times["uncounted_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the tables
@@ -919,7 +1139,7 @@ def main(argv=None) -> int:
                                    for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s ({card})")
-    # 14. kernels, then the result
+    # 15. kernels, then the result
     kernel.update(launches=phases.launches["main path"], launches_by_path=phases.launches)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,10 @@
 //   c_k; a 5-step suffix scan finishes each partition. A block of 4 warps
 //   takes a group of partitions of one row; a partition its warps share is
 //   summed in shared memory.
+//
+// Each kernel adds one to `*runs` (when it is not null) each time it runs,
+// from thread 0 of block 0: a count the card keeps, so a launch replayed
+// from a captured CUDA graph counts like one made from the host.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -89,7 +93,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 rice_cost_tables_mma(const int32_t* __restrict__ errors,
                      const int32_t* __restrict__ warmup,
                      int32_t* __restrict__ out, int total_parts,
-                     int finest_order, int part_len) {
+                     int finest_order, int part_len,
+                     unsigned long long* __restrict__ runs) {
+  if (runs != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(runs, 1ull);
   const int lane = threadIdx.x % 32;
   const int first = (blockIdx.x * kMmaWarps + threadIdx.x / 32) * kMmaRows;
   if (first >= total_parts) return;  // the whole warp
@@ -224,8 +230,10 @@ __global__ void __launch_bounds__(kThreads)
 rice_cost_tables_transpose(const int32_t* __restrict__ errors,
                            const int32_t* __restrict__ warmup,
                            int32_t* __restrict__ out, int block_size,
-                           int finest_order, int parts_per_block) {
+                           int finest_order, int parts_per_block,
+                           unsigned long long* __restrict__ runs) {
   __shared__ unsigned counts[kMaxPartsPerBlock][kNumP];
+  if (runs != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(runs, 1ull);
 
   const int nparts = 1 << finest_order;
   const int part_len = block_size >> finest_order;
@@ -298,14 +306,15 @@ extern "C" {
 
 // errors (rows, block_size) int32, warmup (rows,) int32 and
 // out (rows, 1 << finest_order, 32) int32 are contiguous device buffers;
-// block_size <= 32767. Each entry launches on `stream` and returns a
+// block_size <= 32767; `runs` is a device counter (unsigned 64-bit) the
+// kernel adds one to, or null. Each entry launches on `stream` and returns a
 // cudaError_t (0 on success).
 
 // Tensor-core bit counts: partition lengths (block_size >> finest_order)
 // that are multiples of 16 up to 1024, `errors` aligned to 16 bytes.
 int flacenc_rice_cost_tables_mma(const void* errors, const void* warmup,
                                  void* out, int rows, int block_size,
-                                 int finest_order, void* stream) {
+                                 int finest_order, void* runs, void* stream) {
   const int part_len = block_size >> finest_order;
   if (part_len % 16 != 0 || part_len > kMmaMaxPart || block_size > 32767 ||
       reinterpret_cast<uintptr_t>(errors) % 16 != 0) {
@@ -317,7 +326,8 @@ int flacenc_rice_cost_tables_mma(const void* errors, const void* warmup,
     const int blocks = (warps + kMmaWarps - 1) / kMmaWarps;
     rice_cost_tables_mma<<<blocks, kMmaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(errors), static_cast<const int32_t*>(warmup),
-        static_cast<int32_t*>(out), total_parts, finest_order, part_len);
+        static_cast<int32_t*>(out), total_parts, finest_order, part_len,
+        static_cast<unsigned long long*>(runs));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -328,7 +338,7 @@ int flacenc_rice_cost_tables_mma(const void* errors, const void* warmup,
 int flacenc_rice_cost_tables_transpose(const void* errors, const void* warmup,
                                        void* out, int rows, int block_size,
                                        int finest_order, int parts_per_block,
-                                       void* stream) {
+                                       void* runs, void* stream) {
   const int nparts = 1 << finest_order;
   if (parts_per_block < 1 || parts_per_block > kMaxPartsPerBlock ||
       nparts % parts_per_block != 0 || block_size > 32767) {
@@ -338,7 +348,8 @@ int flacenc_rice_cost_tables_transpose(const void* errors, const void* warmup,
     rice_cost_tables_transpose<<<rows * (nparts / parts_per_block), kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(errors), static_cast<const int32_t*>(warmup),
-        static_cast<int32_t*>(out), block_size, finest_order, parts_per_block);
+        static_cast<int32_t*>(out), block_size, finest_order, parts_per_block,
+        static_cast<unsigned long long*>(runs));
   }
   return static_cast<int>(cudaGetLastError());
 }

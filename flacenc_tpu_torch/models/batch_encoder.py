@@ -10,10 +10,15 @@ array laid out by `coalesce_decisions`; with `decisions_only=False` it also
 returns the chosen residuals (`DeviceEncoded`), and with `wire_encoded` the
 two-buffer form of those (`coalesce_encoded_small`, the int16 residuals).
 
-Host half: `BatchRunner` uploads batches (with the strict host arrays of
-`_strict_ext_arrays` in strict mode), runs the module, on one device or
-split over a `parallel.mesh` of replicas, and packs the frames with one of
-three packers: "native2" (the default) hands the decisions to the C++
+The forward can also take a packed upload wire (``ops/upack.py``) in place
+of the blocks, and G stacked batches at once (grouped round trips).
+
+Host half: `BatchRunner` picks each batch's upload wire (the racer
+`LinkEstimator`, or a fixed mode), uploads it (with the strict host arrays
+of `_strict_ext_arrays` in strict mode), runs the registry's program for
+it (`program_for`: on a card a captured CUDA graph, replayed), on one
+device or split over a `parallel.mesh` of replicas, and packs the frames
+with one of three packers: "native2" (the default) hands the decisions to the C++
 packer (``native.pack_frames_recompute``), which rebuilds each residual
 from the raw blocks; "native" packs the downloaded residuals in C++
 (`pack_frames_native`); "python" builds `component` objects from them
@@ -27,7 +32,9 @@ Stereo candidates are indexed L=0, R=1, M=2, S=3; assignment codes are
 
 from __future__ import annotations
 
+import collections
 import copy
+import functools
 import os
 import time
 from typing import Iterator, List, NamedTuple, Optional
@@ -58,6 +65,7 @@ from ..ops import fixed as ops_fixed
 from ..ops import lpc as ops_lpc
 from ..ops import ref_np
 from ..ops import rice as ops_rice
+from ..ops import upack
 from ..ops.windows import get_window
 from ..parallel import determine_worker_count
 from ..parallel import mesh as pmesh
@@ -392,21 +400,29 @@ class BatchEncoder(nn.Module):
     `decisions_only=False` a `DeviceEncoded` of tensors, residuals
     included; with `wire_encoded` (which implies residuals) the pair
     (`coalesce_encoded_small`, (B, C, T) int16 residuals) that the "native"
-    and "python" packers download. The JAX program's upload wires
-    (`packed_wire`) and grouped round trips (`grouped`) raise
-    `NotImplementedError` naming the ROADMAP.md queue-1 item that holds
-    them."""
+    and "python" packers download.
+
+    `packed_wire` (a wire tuple of ``ops/upack.py``: ("w", order, width),
+    ("r", order, p, Wu), ("m", om, pm, wum, os, ps, wus) or ("d", order))
+    makes the forward take that wire's payload arrays in place of the
+    blocks and rebuild the exact blocks first; the outputs do not change.
+    `grouped` = G > 0 makes it take every input stacked G deep and return
+    every output stacked G deep: G batches through one call (the JAX
+    program's ``lax.map`` over G)."""
 
     def __init__(self, cfg, nchannels: int, bps: int, block_size: int, *,
                  strict_lpc: bool = False, decisions_only: bool = True,
                  packed_wire=None, wire_encoded: bool = False, grouped: int = 0):
         super().__init__()
         cfg = cfg.inner if isinstance(cfg, Verified) else cfg
-        if packed_wire is not None or grouped:
-            raise NotImplementedError(
-                "packed upload wires and grouped round trips are ROADMAP.md "
-                "queue 1, item 13"
-            )
+        if packed_wire is not None and packed_wire[0] not in ("w", "r", "m", "d"):
+            raise ValueError(f"unknown upload wire {packed_wire!r}")
+        if packed_wire is not None and packed_wire[0] == "m" and nchannels != 2:
+            raise ValueError("the mid/side wire carries stereo blocks only")
+        if grouped < 0:
+            raise ValueError(f"grouped must be 0 or a group size, not {grouped}")
+        self.packed_wire = tuple(packed_wire) if packed_wire is not None else None
+        self.grouped = grouped
         self.decisions_only = decisions_only and not wire_encoded
         self.wire_encoded = wire_encoded
         self.cfg = cfg
@@ -430,13 +446,31 @@ class BatchEncoder(nn.Module):
             "slots", torch.from_numpy(np.stack([_SLOT0, _SLOT1], axis=-1)).long()
         )
 
-    def forward(self, blocks: torch.Tensor, *ext: torch.Tensor):
-        """(B, C, T) blocks -> the output named in the class docstring.
+    def forward(self, *inputs: torch.Tensor):
+        """(B, C, T) blocks (or the payload of `packed_wire`), then the
+        strict host arrays -> the output named in the class docstring; with
+        `grouped` every input and output has a leading group axis.
 
-        In strict mode `ext` is (qcoefs, order, shift) for every candidate
-        channel, plus (fixed order, est_bits) when the fixed order is
-        selected by ApproxEnt: `_strict_ext_arrays` on the same blocks,
+        In strict mode the host arrays are (qcoefs, order, shift) for every
+        candidate channel, plus (fixed order, est_bits) when the fixed order
+        is selected by ApproxEnt: `_strict_ext_arrays` on the same blocks,
         on the blocks' device."""
+        if not self.grouped:
+            return self._encode(*inputs)
+        outs = [self._encode(*(x[g] for x in inputs)) for g in range(inputs[0].shape[0])]
+        first = outs[0]
+        if isinstance(first, torch.Tensor):
+            return torch.stack(outs)
+        fields = [torch.stack(parts) for parts in zip(*outs)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+    def _encode(self, *inputs: torch.Tensor):
+        """One batch: the wire's payload is unpacked first (`packed_wire`)."""
+        if self.packed_wire is not None:
+            blocks, n = upack.unpack_wire(self.packed_wire, inputs, self.block_size)
+            ext = inputs[n:]
+        else:
+            blocks, ext = inputs[0], inputs[1:]
         B, C, T = blocks.shape
         if C != self.nchannels or T != self.block_size:
             raise ValueError(
@@ -798,6 +832,358 @@ def resolve_strict(strict_lpc: Optional[bool], cfg) -> bool:
     return bool(strict_lpc)
 
 
+# ---------------------------------------------------------------------------
+# The upload-wire racer (port of the JAX package's LinkEstimator)
+# ---------------------------------------------------------------------------
+
+# a raw wire measured faster than this is not the bottleneck (PCIe class):
+# stay on the zero-CPU raw wire and explore no packed format
+_FAST_LINK_MBPS = 400.0
+# decisions between re-probes of a currently losing wire kind
+_EXPLORE_EVERY = 16
+# never re-probe a kind predicted worse than this ratio against the current
+_EXPLORE_MAX_RATIO = 3.0
+# consecutive batches per probe: a drain gap is credited only when the
+# drained batch and its predecessor share a wire kind, so a probe holds its
+# kind for 2 batches and the second one reads clean
+_PROBE_LEN = 2
+# consecutive winning `choose` calls before the incumbent is dethroned
+_SWITCH_VOTES = 2
+# an estimate may win a switch only if sampled within this many decisions
+# and this many wall seconds (a link's speed shifts between windows)
+_FRESH_AGE = 32
+_FRESH_SECONDS = 15.0
+# batches between full `try_pack` scans while a cached rice plan packs cleanly
+_PLAN_RESCAN_EVERY = 16
+# grouped round trips: G batches' payloads stacked, uploaded and run as one
+# forward, one (G, B, F) download. Auto mode engages only once the measured
+# download-wait EWMA exceeds _GROUP_FETCH_MIN_S; FLACENC_FETCH_GROUP pins G
+# (1 = never group)
+_FETCH_GROUP_AUTO = 4
+_GROUP_FETCH_MIN_S = 0.015
+# last measured download-wait EWMA in this process (None until a batch has
+# been waited for): seeds a new runner's auto-group gate
+_LAST_FETCH_EWMA: Optional[float] = None
+
+
+class LinkEstimator:
+    """Per-wire-kind batch-time racer.
+
+    - `update(nbytes, seconds, kind)` feeds a drained batch's completion gap
+      into the kind's geometric EWMA (gaps at full pipeline depth measure
+      the bottleneck stage: the link and the wire's own host cost, whichever
+      binds). The caller feeds only gaps whose drained batch shares its kind
+      with the batch drained just before it (homogeneous pairs).
+    - `choose(kinds, current)` returns the kind with the smallest predicted
+      gap among kinds with fresh estimates (sampled within `_FRESH_AGE`
+      decisions and `_FRESH_SECONDS`), with a 10 % preference for the
+      incumbent and a `_SWITCH_VOTES`-decision debounce. Stale kinds are
+      reachable only through a `_PROBE_LEN`-batch re-probe, gated by the
+      bytes-predicted cost at the incumbent's current speed. A cold start
+      measures raw first; packed kinds are explored only once a raw gap
+      shows the link slower than `_FAST_LINK_MBPS`.
+
+    Wire kinds: "raw" (int16/int32 PCM), "d" (delta16), "pack" (the dense
+    "w"/"r"/"m" wires of ``ops/upack.try_pack``). Output bytes never depend
+    on the wire."""
+
+    def __init__(self) -> None:
+        self.secs: dict = {}      # kind -> EWMA seconds per batch
+        self.nbytes: dict = {}    # kind -> EWMA wire bytes per batch
+        self.age: dict = {}       # kind -> choose() calls since sampled
+        self.t_sample: dict = {}  # kind -> wall time of the last sample
+        self.mbps: Optional[float] = None  # latest effective MB/s (stats)
+        self._probe: Optional[tuple] = None  # (kind, batches remaining)
+        self._vote: Optional[tuple] = None   # (challenger kind, wins)
+
+    def update(self, nbytes: int, seconds: float, kind: str = "raw") -> None:
+        if seconds <= 0 or nbytes <= 0:
+            return
+        self.mbps = max(nbytes / seconds / 1e6, 1e-3)
+        prev = self.secs.get(kind)
+        # geometric EWMA that adopts improvements faster (capped at 2x the
+        # new sample): stalls inflate a gap, nothing deflates it below the
+        # wire's true cost
+        self.secs[kind] = (
+            seconds if prev is None else min(float((prev * seconds) ** 0.5), 2.0 * seconds)
+        )
+        prevb = self.nbytes.get(kind)
+        self.nbytes[kind] = nbytes if prevb is None else float((prevb * nbytes) ** 0.5)
+        self.age[kind] = 0
+        self.t_sample[kind] = time.perf_counter()
+
+    def _link_is_fast(self) -> bool:
+        raw_s, raw_b = self.secs.get("raw"), self.nbytes.get("raw")
+        return raw_s is not None and raw_b is not None and (
+            raw_b / raw_s / 1e6 > _FAST_LINK_MBPS
+        )
+
+    def _is_fresh(self, kind: str) -> bool:
+        t = self.t_sample.get(kind)
+        return (
+            kind in self.secs
+            and self.age.get(kind, _FRESH_AGE + 1) <= _FRESH_AGE
+            and t is not None
+            and time.perf_counter() - t <= _FRESH_SECONDS
+        )
+
+    def initial_kind(self, kinds) -> str:
+        """A new runner's starting kind: raw when unproven or on a fast
+        link, else the smallest-bytes measured kind."""
+        if "raw" not in self.secs or self._link_is_fast():
+            return "raw"
+        known = [k for k in kinds if k in self.nbytes]
+        if not known:
+            return "raw"
+        return min(known, key=lambda k: self.nbytes[k])
+
+    def choose(self, kinds, current: str) -> str:
+        # ages tick per decision, so re-probes fire even while wire churn
+        # keeps update() calls sparse
+        for k in kinds:
+            self.age[k] = self.age.get(k, _FRESH_AGE + 1) + 1
+        if self._probe is not None:
+            k, n = self._probe
+            self._probe = None
+            if n > 0 and k in kinds:
+                self._probe = (k, n - 1)
+                return k
+        known = {k: self.secs[k] for k in kinds if k in self.secs}
+        if "raw" not in known:
+            return "raw"  # cold start: measure the zero-CPU wire first
+        if len(known) < len(kinds):
+            # unexplored kinds: probe each once, unless raw already shows
+            # the link is not the bottleneck
+            if self._link_is_fast():
+                return "raw"
+            for k in kinds:
+                if k not in known:
+                    self._probe = (k, _PROBE_LEN - 1)
+                    return k
+        cur = known.get(current, float("inf"))
+        cur_bytes = self.nbytes.get(current)
+        mbps_cur = (
+            cur_bytes / cur / 1e6
+            if cur_bytes and cur not in (0.0, float("inf")) else self.mbps
+        )
+        # stale re-probe, gated by the bytes-predicted cost at the
+        # incumbent's speed (clearly losing kinds are probed half as often)
+        for k in kinds:
+            if k == current or self.age.get(k, 0) < _EXPLORE_EVERY:
+                continue
+            pred = (
+                self.nbytes[k] / (mbps_cur * 1e6)
+                if mbps_cur and k in self.nbytes else known.get(k)
+            )
+            if pred is None or pred > cur * _EXPLORE_MAX_RATIO:
+                continue
+            if pred > cur * 1.2 and self.age.get(k, 0) < 2 * _EXPLORE_EVERY:
+                continue
+            self.age[k] = 0
+            self._probe = (k, _PROBE_LEN - 1)
+            return k
+        fresh = {k: v for k, v in known.items() if self._is_fresh(k)}
+        if current not in fresh:
+            if current in known:
+                return current
+            return self.initial_kind(kinds)
+        best = min(fresh, key=fresh.get)
+        if best != current and fresh[best] < cur * 0.9:
+            # debounce: a challenger holds its win across _SWITCH_VOTES
+            # consecutive decisions before it takes over
+            k, n = self._vote if self._vote and self._vote[0] == best else (best, 0)
+            n += 1
+            if n >= _SWITCH_VOTES:
+                self._vote = None
+                return best
+            self._vote = (k, n)
+            return current
+        self._vote = None
+        return current
+
+
+# process-wide estimators keyed by payload-shape bucket (log2 of samples per
+# batch): the racer keeps learning across encodes of one shape, and batches
+# of very different sizes, whose gaps are incomparable, do not mix
+_LINK_ESTS: dict = {}
+
+
+def _shape_bucket(samples_per_batch: int) -> int:
+    return max(samples_per_batch, 1).bit_length()
+
+
+def _link_est_for(bucket: int) -> LinkEstimator:
+    est = _LINK_ESTS.get(bucket)
+    if est is None:
+        est = _LINK_ESTS[bucket] = LinkEstimator()
+    return est
+
+
+# ---------------------------------------------------------------------------
+# The program registry: one module, and on a card one CUDA graph, per key
+# ---------------------------------------------------------------------------
+
+_PROGRAM_CACHE_SIZE = 64  # entries, least recently used evicted first
+_PROGRAMS: "collections.OrderedDict[tuple, Program]" = collections.OrderedDict()
+# (device, mesh replica) -> the memory pool that replica's captures share.
+# Graphs of one pool may reuse each other's intermediates, so a replay's
+# outputs are copied out before the next replay from the same pool; the
+# replicas of a mesh replay one after another before any copy, so each has
+# a pool of its own.
+_GRAPH_POOLS: dict = {}
+# batch forwards run by the programs (a grouped call runs G; a capture runs
+# its warm-up's and its first replay's): what launch counts are held to
+PROGRAM_COUNTS = {"forwards": 0}
+
+
+def _outputs_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _graph_pool(dev: torch.device, replica: tuple):
+    pool = _GRAPH_POOLS.get((dev, replica))
+    if pool is None:
+        pool = _GRAPH_POOLS[(dev, replica)] = torch.cuda.graph_pool_handle()
+    return pool
+
+
+class Program:
+    """One registry entry: a `BatchEncoder` on one device and, when
+    `capture` (a card, and a forward that never syncs), the CUDA graph of
+    its forward with static input and output buffers.
+
+    The first call copies its inputs into fresh static buffers, runs the
+    module once eagerly on a side stream (the warm-up), captures the forward
+    into a graph in its replica's memory pool, replays it on the same
+    inputs and checks that the replay's outputs equal the warm-up's
+    (`checked`); any failure raises. Later calls copy their inputs into the
+    static buffers and replay: a replay overwrites the static outputs, so
+    the caller enqueues its download of them before the next replay from
+    the same pool. Without `capture` a call runs the module eagerly."""
+
+    def __init__(self, key: tuple, module: nn.Module, device: torch.device, capture: bool,
+                 replica: tuple = ()):
+        self.key = key
+        self.module = module
+        self.device = device
+        self.replica = replica
+        self.capture = capture and device.type == "cuda"
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_in: List[torch.Tensor] = []
+        self.static_out = None
+        self.batches = max(1, module.grouped)  # batch forwards one call runs
+        self.checked: Optional[bool] = None  # replay == eager on the first call
+        self.capture_s = 0.0     # wall seconds of the first call (warm-up, capture, check)
+
+    def __call__(self, *inputs: torch.Tensor):
+        if not self.capture:
+            PROGRAM_COUNTS["forwards"] += self.batches
+            return self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
+        if self.graph is None:
+            return self._capture(inputs)
+        for static, x in zip(self.static_in, inputs):
+            static.copy_(x, non_blocking=True)
+        self.graph.replay()
+        PROGRAM_COUNTS["forwards"] += self.batches
+        return self.static_out
+
+    def _capture(self, inputs):
+        t0 = time.perf_counter()
+        dev = self.device
+        with torch.cuda.device(dev):
+            self.static_in = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs]
+            for static, x in zip(self.static_in, inputs):
+                static.copy_(x, non_blocking=True)
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                eager = self.module(*self.static_in)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # capture_begin/end on the side stream, as `torch.cuda.graph`
+            # does, without its gc.collect() and empty_cache(): those cost
+            # tens to hundreds of ms in a process holding a stream's frames,
+            # and the cache they empty is what the next forward allocates from
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=_graph_pool(dev, self.replica))
+                try:
+                    out = self.module(*self.static_in)
+                finally:
+                    graph.capture_end()
+            main.wait_stream(side)
+            graph.replay()
+            PROGRAM_COUNTS["forwards"] += 2 * self.batches  # the warm-up's and the replay's
+            self.checked = _outputs_equal(out, eager)
+            if not self.checked:
+                raise RuntimeError(f"the CUDA graph of {self.key[5:8]} differs from its eager forward")
+            self.graph, self.static_out = graph, out
+        self.capture_s = time.perf_counter() - t0
+        return out
+
+
+def graph_capturable(cfg, strict_lpc: bool, block_size: int) -> bool:
+    """Whether the forward can be captured: the direct-MSE and IRLS solvers
+    sync on `failed.any()` once per solve, so their forwards stay eager (in
+    strict mode the host supplies the coefficients and nothing syncs)."""
+    sub = cfg.subframe_coding
+    syncs = (sub.use_lpc and sub.qlpc.use_direct_mse and not strict_lpc
+             and block_size >= constants.MIN_BLOCK_SIZE_FOR_PREDICTION)
+    return not syncs
+
+
+def program_for(cfg, nch: int, bps: int, block_size: int, strict_lpc: bool, packer: str,
+                wire, shapes: tuple, device: torch.device, grouped: int = 0,
+                replica: tuple = ()) -> Program:
+    """The registry's program for a key (config, C, bps, T, strict, packer,
+    wire, input shapes and dtypes, device, replica of a mesh, G), built and
+    inserted on a miss, the least recently used of `_PROGRAM_CACHE_SIZE`
+    entries evicted."""
+    key = (cfg.to_toml(), nch, bps, block_size, strict_lpc, packer, wire, shapes,
+           str(device), replica, grouped)
+    prog = _PROGRAMS.get(key)
+    if prog is not None:
+        _PROGRAMS.move_to_end(key)
+        return prog
+    module = BatchEncoder(
+        cfg, nch, bps, block_size, strict_lpc=strict_lpc, packed_wire=wire,
+        wire_encoded=packer != "native2", grouped=grouped,
+    ).to(device)
+    prog = Program(key, module, device, graph_capturable(cfg, strict_lpc, block_size), replica)
+    _PROGRAMS[key] = prog
+    while len(_PROGRAMS) > _PROGRAM_CACHE_SIZE:
+        _PROGRAMS.popitem(last=False)
+    return prog
+
+
+def _sync_programs(grouped: Optional[bool]) -> None:
+    devices = {p.device for p in list(_PROGRAMS.values())
+               if p.device.type == "cuda" and (grouped is None or bool(p.key[-1]) == grouped)}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+def wait_wire_warms(timeout: Optional[float] = None) -> None:
+    """Return once every per-batch program's capture and warm replay has
+    finished on its card. Captures run inline on the caller's thread, so
+    this only waits for the work already queued; `timeout` is accepted for
+    the JAX package's signature."""
+    _sync_programs(False)
+
+
+def wait_group_warms(timeout: Optional[float] = None) -> None:
+    """As `wait_wire_warms`, for the grouped programs."""
+    _sync_programs(True)
+
+
+def wait_all_warms(timeout: Optional[float] = None) -> None:
+    """Return once every pending capture, per-batch and grouped, is done."""
+    _sync_programs(None)
+
+
 class BatchResult(NamedTuple):
     """One packed batch: its frames (padding rows dropped) and the cookie
     the caller submitted with it."""
@@ -806,16 +1192,26 @@ class BatchResult(NamedTuple):
     cookie: object
 
 
-class _Batch(NamedTuple):
-    """One batch in flight: host copies of its inputs and of its outputs."""
+class _Batch:
+    """One submitted batch: host copies of its inputs and, once launched,
+    of its outputs."""
 
-    blocks: np.ndarray       # (n, C, T) real (unpadded) blocks
-    nums: np.ndarray         # (n,) frame numbers
-    rate: int                # sample rate for the frame headers
-    cookie: object
-    outputs: tuple           # the module's output tensors, whole batch, on
-                             #   the host (pinned when on a card)
-    done: list               # CUDA events recorded after the downloads
+    __slots__ = ("blocks", "nums", "rate", "cookie", "payload", "wire", "kind", "nbytes",
+                 "seq", "outputs", "done", "group")
+
+    def __init__(self, blocks, nums, rate, cookie, payload, wire, kind, nbytes, seq):
+        self.blocks = blocks    # (n, C, T) real (unpadded) blocks
+        self.nums = nums        # (n,) frame numbers
+        self.rate = rate        # sample rate for the frame headers
+        self.cookie = cookie
+        self.payload = payload  # the host arrays the program takes
+        self.wire = wire        # upload wire tuple, None for raw PCM
+        self.kind = kind        # racer kind: "raw", "d" or "pack"
+        self.nbytes = nbytes    # upload bytes
+        self.seq = seq          # submit sequence number (timeline id)
+        self.outputs = None     # output tensors on the host (pinned on a card)
+        self.done: list = []    # CUDA events recorded after the downloads
+        self.group = None       # the grouped round trip it rides, if any
 
 
 def _mesh_device_count(mesh, batch_size: int, dev: torch.device) -> int:
@@ -853,93 +1249,371 @@ def _auto_mesh(mesh, batch_size: int, dev: torch.device):
 
 
 class BatchRunner:
-    """Runs batches of blocks through one `BatchEncoder` and packs them: the
-    port's stand-in for the JAX package's ``BatchPipeline``, shared by
-    `encode_with_fixed_block_size` and ``parallel.encode_corpus``.
+    """Runs batches of blocks through the registry's programs and packs
+    them: the port's stand-in for the JAX package's ``BatchPipeline``,
+    shared by `encode_with_fixed_block_size` and ``parallel.encode_corpus``.
 
     `packer` ("auto", "native2", "native" or "python", resolved by
     `resolve_packer`) picks the module's outputs and the host assembly:
     "native2" downloads the (B, F) decisions; "native" and "python"
     download the `wire_encoded` pair, decisions plus fits16 and the int16
     residuals. `mesh` ("auto", None or a `parallel.mesh.BlockMesh`, see
-    `_auto_mesh`) splits every batch over replicas of the module; each
+    `_auto_mesh`) splits every batch over replicas, one program each; each
     shard's outputs land in their rows of one host buffer.
 
-    `submit` pads a batch to `batch_size` with zero blocks, range-checks it,
-    computes the strict host arrays when strict, uploads and launches it,
-    then packs the batch before it: the host packs batch i (and computes
-    batch i+1's strict arrays) while the card runs batch i+1, a one-deep
-    overlap. `drain` packs what is still in flight.
+    Programs come from the process-wide registry (`program_for`): on a card
+    each is a captured CUDA graph replayed for every batch (the direct-MSE
+    and IRLS forwards, which sync, run eagerly), on the CPU the eager module.
 
-    `stats` holds wall-clock totals: submit_s (pad, range check, strict
-    arrays, upload, launch), device_wait_s (waiting for the downloads),
-    pack_s and batches."""
+    `upload_pack` picks the upload wire ("env" reads FLACENC_PACKED_UPLOAD:
+    unset races the wires, "1" the dense wire, "d" the delta16 wire, "0"
+    raw): True forces the dense wires of ``ops.upack.try_pack`` (raises when
+    bps > 24 or the block size is not a multiple of 16), "delta" the delta16
+    wire (bps <= 16 only), False raw PCM, "auto" the racer (`LinkEstimator`,
+    fed by the drain gaps of homogeneous pairs). Unset, the racer runs only
+    for the "native2" packer on a card. FLACENC_FETCH_GROUP=G stacks G
+    batches into one grouped round trip; unset, grouping engages when the
+    measured download wait exceeds `_GROUP_FETCH_MIN_S`.
+    No wire and no G changes the bytes.
+
+    `submit` pads a batch to `batch_size` with zero blocks, range-checks it,
+    packs its upload wire, computes the strict host arrays when strict,
+    uploads and launches it (or parks it in the open group), then packs the
+    oldest batch once `depth` are in flight: the host packs batch i while
+    the card runs batch i+1, a one-deep overlap (G-deep while grouping).
+    `drain` packs what is still in flight.
+
+    `stats` holds wall-clock totals: submit_s (pad, range check, wire pack,
+    strict arrays, upload, launch), device_wait_s (waiting for the
+    downloads), pack_s and batches; FLACENC_TIMELINE=1 also keeps
+    (event, batch, perf_counter, ...) tuples in `timeline`."""
 
     def __init__(self, cfg, nch: int, bps: int, block_size: int, batch_size: int,
                  device: str | torch.device = "cuda", strict_lpc: bool = False,
-                 packer: str = "auto", mesh="auto"):
+                 packer: str = "auto", mesh="auto", upload_pack="env"):
         self.packer = resolve_packer(packer)
         self.dev = _home_device(mesh, device)
         self.mesh = _auto_mesh(mesh, batch_size, self.dev)
         self.cfg, self.nch, self.bps = cfg, nch, bps
         self.block_size, self.batch_size = block_size, batch_size
-        self.encoder = BatchEncoder(
-            cfg, nch, bps, block_size, strict_lpc=strict_lpc,
-            wire_encoded=self.packer != "native2",
-        ).to(self.dev)
-        self.sharded = (
-            pmesh.shard_encoder_fn(self.encoder, self.mesh) if self.mesh is not None else None
-        )
+        self.strict_lpc = strict_lpc
+        self.devices = self.mesh.devices if self.mesh is not None else (self.dev,)
+        self.on_cuda = any(d.type == "cuda" for d in self.devices)
         self.assemble = _ASSEMBLERS[self.packer]
         self.strict_window = (
             get_window(cfg.subframe_coding.qlpc.window, block_size) if strict_lpc else None
         )
         self.stats = {"submit_s": 0.0, "device_wait_s": 0.0, "pack_s": 0.0, "batches": 0}
         self._inflight: List[_Batch] = []
+        self._programs: dict = {}  # (wire, shapes, G) -> Program, or a mesh's ShardedEncoder of them
+        self._init_upload(upload_pack)
+        self._est = _link_est_for(_shape_bucket(batch_size * nch * block_size))
+        # wire kind of the last submitted batch: the racer's incumbent
+        self._wire_kind = {"on": "pack", "delta": "d"}.get(self.upload_mode, "raw")
+        if self.upload_mode == "auto":
+            self._wire_kind = self._est.initial_kind(self._kinds())
+        self.upload_pack = self._wire_kind != "raw"
+        self._last_drain: Optional[float] = None
+        self._prev_drain_kind: Optional[str] = None
+        # the last rice/ms plan, reused until it overflows or ages out
+        self._rice_plan: Optional[tuple] = None
+        self._rice_plan_age = 0
+        self.wire_counts: dict = {}   # wire tuple (None = raw) -> batches
+        self._wu_sticky: dict = {}    # rice unary budgets only grow: few keys
+        self.fetch_group = int(os.environ.get("FLACENC_FETCH_GROUP", "0") or 0)
+        self._fetch_ewma: Optional[float] = _LAST_FETCH_EWMA
+        self._group_open: List[_Batch] = []
+        self.grouped_batches = 0
+        self.captures = 0  # programs this runner captured (0 when all were cached)
+        self.capture_s = 0.0  # wall seconds those captures took, inside submit_s
+        self.timeline: Optional[list] = [] if os.environ.get("FLACENC_TIMELINE") else None
+        self._seq = 0
 
-    def _launch(self, blocks: np.ndarray, nums: np.ndarray, rate: int, cookie) -> _Batch:
-        chunk = _bucket_pad(blocks, self.batch_size)
-        verify_sample_range(chunk, self.bps)
+    # -- upload wires -------------------------------------------------------
+
+    def _init_upload(self, upload_pack) -> None:
+        """`upload_mode` ("off", "on", "delta" or "auto") and the wires'
+        eligibility, by the JAX package's rules."""
+        explicit_pack = upload_pack is True
+        explicit_auto = upload_pack == "auto"
+        if upload_pack == "env":
+            env = os.environ.get("FLACENC_PACKED_UPLOAD", "")
+            upload_pack = {"": "auto", "1": True, "d": "delta"}.get(env, False)
+        self.upload_mode = "off"
+        eligible = False
+        if upload_pack:
+            # the dense and rice wires cover hi-res (bps <= 24); delta16's
+            # mod-2^16 reconstruction holds for bps <= 16 only
+            eligible = self.bps <= upack.MAX_PACK_BPS and self.block_size % upack.GROUP == 0
+            if explicit_pack and not eligible:
+                raise ValueError(
+                    f"upload_pack=True requires bits_per_sample <= {upack.MAX_PACK_BPS} "
+                    f"and a block size divisible by {upack.GROUP} "
+                    f"(got bps={self.bps}, block_size={self.block_size})"
+                )
+            if upload_pack == "auto":
+                # race only on the decisions path, and on the CPU (no link:
+                # uploads are memcpys) only when "auto" was asked for
+                if eligible and native.available() and self.packer == "native2":
+                    if explicit_auto or self.on_cuda:
+                        self.upload_mode = "auto"
+            elif eligible:
+                if upload_pack == "delta" and self.bps > 16:
+                    raise ValueError(
+                        "upload_pack='delta' requires bits_per_sample <= 16 "
+                        "(wrapped int16 deltas cannot represent hi-res "
+                        f"samples; got bps={self.bps})"
+                    )
+                self.upload_mode = "delta" if upload_pack == "delta" else "on"
+        self._eligible_pack = eligible
+        self._delta_eligible = eligible and self.bps <= 16
+
+    def _kinds(self) -> tuple:
+        return ("raw", "d", "pack") if self._delta_eligible else ("raw", "pack")
+
+    def _try_pack_cached(self, chunk):
+        """`upack.try_pack` with plan reuse: a cached rice or mid/side plan
+        packs the next batch without a scan, at the plan's own unary
+        budgets; an overflow, a non-rice plan or `_PLAN_RESCAN_EVERY`
+        batches take the full scan."""
+        plan = self._rice_plan
+        self._rice_plan_age += 1
+        if plan is not None and self._rice_plan_age < _PLAN_RESCAN_EVERY:
+            if plan[0] == "m":
+                packed = upack.pack_ms(chunk, *plan[1:])
+                if packed is not None:
+                    return plan, packed
+            elif plan[0] == "r":
+                _, order, p, wu = plan
+                packed = upack._pk_for(order)(chunk, order, p, wu)
+                if packed is not None:
+                    return plan, packed
+        packed = upack.try_pack(chunk, self.bps)
+        self._rice_plan = packed[0] if packed is not None else None
+        self._rice_plan_age = 0
+        return packed
+
+    def _sticky(self, wire, payload):
+        """Pad a rice or mid/side payload's unary budget up to the largest
+        already used for its (order, p) so that quieter batches reuse one
+        program (zero padding is decode-inert)."""
+        if wire[0] == "r":
+            _, o, p, wu = wire
+            floor = self._wu_sticky.get((o, p), 0)
+            if wu >= floor:
+                self._wu_sticky[(o, p)] = wu
+                return wire, payload
+            lo, unary, firsts = payload
+            unary = np.concatenate(
+                [unary, np.zeros(unary.shape[:-1] + (floor - wu,), np.uint32)], axis=-1)
+            return ("r", o, p, floor), (lo, unary, firsts)
+        if wire[0] == "m":
+            _, om, pm, wum, os2, ps, wus = wire
+            key = ("m", om, pm, os2, ps)
+            fm, fs = self._wu_sticky.get(key, (0, 0))
+            fm, fs = max(fm, wum), max(fs, wus)
+            self._wu_sticky[key] = (fm, fs)
+            if fm > wum or fs > wus:
+                payload = upack.pad_ms_unary(payload, wum, wus, fm, fs)
+                wire = ("m", om, pm, fm, os2, ps, fs)
+        return wire, payload
+
+    def _upload(self, chunk: np.ndarray):
+        """(wire, payload arrays, kind) for this batch: the racer's (or the
+        mode's) kind, packed; raw when nothing beats it."""
+        kind = "raw"
+        if self._eligible_pack:
+            if self.upload_mode == "auto":
+                kind = self._est.choose(self._kinds(), self._wire_kind)
+            elif self.upload_mode == "on":
+                kind = "pack"
+            elif self.upload_mode == "delta":
+                kind = "d"
+        packed = None
+        if kind == "pack":
+            packed = self._try_pack_cached(chunk)
+        elif kind == "d":
+            packed = upack.pack_delta(chunk)
+        if packed is not None:
+            wire, payload = self._sticky(*packed)
+            return wire, tuple(payload), "d" if wire[0] == "d" else "pack"
         # int16 upload when bps <= 16 halves the host->device bytes
         up = chunk if self.bps > 16 or chunk.dtype == np.int16 else chunk.astype(np.int16)
-        arrays = [up]
-        if self.strict_window is not None:
-            arrays += _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps, self.strict_window)
-        inputs = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        devices = self.mesh.devices if self.mesh is not None else (self.dev,)
-        on_cuda = any(d.type == "cuda" for d in devices)
+        return None, (up,), "raw"
+
+    # -- programs and launches ---------------------------------------------
+
+    def _mark(self, event: str, idx, *extra) -> None:
+        if self.timeline is not None:
+            self.timeline.append((event, idx, time.perf_counter()) + extra)
+
+    def _program(self, wire, inputs, grouped: int = 0):
+        """The runner's program for these inputs: the registry's program on
+        its device, or over a mesh a ``parallel.mesh.ShardedEncoder`` whose
+        replicas are the registry's programs for the shards."""
+        shapes = tuple((tuple(x.shape), str(x.dtype)) for x in inputs)
+        key = (wire, shapes, grouped)
+        prog = self._programs.get(key)
+        if prog is None:
+            build = functools.partial(program_for, self.cfg, self.nch, self.bps,
+                                      self.block_size, self.strict_lpc, self.packer, wire,
+                                      grouped=grouped)
+            if self.mesh is None:
+                prog = build(shapes, self.dev)
+            else:  # grouping never runs over a mesh (`_group_target`)
+                per = self.batch_size // self.mesh.size
+                shard_shapes = tuple(((per,) + s[1:], d) for s, d in shapes)
+                prog = pmesh.ShardedEncoder([
+                    build(shard_shapes, dev, replica=(repr(self.mesh), i))
+                    for i, dev in enumerate(self.mesh.devices)], self.mesh)
+            self._programs[key] = prog
+        return prog
+
+    def _run(self, wire, arrays, grouped: int = 0):
+        """Upload `arrays` (pinned on a card), run the program (over a mesh
+        each replica on its shard) and enqueue every output's download into
+        its rows of one host buffer, behind one CUDA event per card.
+        Returns (host outputs, events)."""
+        inputs = [torch.from_numpy(np.ascontiguousarray(
+            a.view(np.int32) if a.dtype == np.uint32 else a)) for a in arrays]
         with torch.inference_mode():
-            if on_cuda:
+            if self.on_cuda:
                 inputs = [x.pin_memory() for x in inputs]
-            if self.sharded is not None:
-                shards = self.sharded.launch(*inputs)
-            else:
-                xs = [x.to(self.dev, non_blocking=True) for x in inputs]
-                shards = [(slice(0, self.batch_size), self.encoder(*xs))]
-            # every shard's outputs land in their rows of one host buffer
-            # per output, behind one event per card
-            first = shards[0][1]
-            parts = (first,) if isinstance(first, torch.Tensor) else first
+            prog = self._program(wire, inputs, grouped)
+            sharded = isinstance(prog, pmesh.ShardedEncoder)
+            fresh = [p for p in (prog.replicas if sharded else [prog])
+                     if p.capture and p.graph is None]
+            shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
+            self.captures += len(fresh)
+            self.capture_s += sum(p.capture_s for p in fresh)
+            outs = [(sl, (out,) if isinstance(out, torch.Tensor) else tuple(out))
+                    for sl, out in shards]
+            rows = inputs[0].shape[0]
             host = [
-                torch.empty((self.batch_size,) + p.shape[1:], dtype=p.dtype, pin_memory=on_cuda)
-                for p in parts
+                torch.empty((rows,) + o.shape[1:], dtype=o.dtype, pin_memory=self.on_cuda)
+                for o in outs[0][1]
             ]
             done = {}
-            for sl, out in shards:
-                outs = (out,) if isinstance(out, torch.Tensor) else out
-                for h, o in zip(host, outs):
-                    h[sl].copy_(o, non_blocking=on_cuda)
-                dev = outs[0].device
+            for sl, out in outs:
+                for h, o in zip(host, out):
+                    h[sl].copy_(o, non_blocking=self.on_cuda)
+                dev = out[0].device
                 if dev.type == "cuda":
                     done[dev] = torch.cuda.Event()
                     done[dev].record(torch.cuda.current_stream(dev))
-        return _Batch(blocks, nums, rate, cookie, tuple(host), list(done.values()))
+        return host, list(done.values())
 
-    def _finish(self, batch: _Batch) -> BatchResult:
+    def _launch(self, batch: _Batch) -> None:
+        arrays = batch.payload
+        if self.strict_window is not None:
+            chunk = _bucket_pad(batch.blocks, self.batch_size)
+            arrays = arrays + _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps,
+                                                 self.strict_window)
+        batch.outputs, batch.done = self._run(batch.wire, arrays)
+        self._mark("issued", batch.seq)
+
+    # -- grouped round trips ------------------------------------------------
+
+    def _group_target(self) -> int:
+        """Round-trip group size for the next batch: 1 (alone) unless the
+        "native2" packer runs unsplit and not strict, and either
+        FLACENC_FETCH_GROUP pins G > 1 or the download-wait EWMA shows a
+        slow link."""
+        if self.packer != "native2" or self.mesh is not None or self.strict_lpc:
+            return 1
+        g = self.fetch_group or _FETCH_GROUP_AUTO
+        if g <= 1:
+            return 1
+        if not self.fetch_group:
+            f = self._fetch_ewma
+            if f is None or f <= _GROUP_FETCH_MIN_S:
+                return 1
+        return g
+
+    def _flush_group(self) -> None:
+        """Launch the open group: a full one as one stacked upload, one
+        grouped forward and one (G, B, F) download; a partial one (stream
+        end, a wire or shape change) batch by batch with the per-batch
+        program."""
+        entries, self._group_open = self._group_open, []
+        if not entries:
+            return
+        self.grouped_batches += len(entries)
+        group = {"entries": len(entries), "left": len(entries), "waited": False,
+                 "nbytes": sum(e.nbytes for e in entries)}
+        self._mark("gtrip_start", entries[0].seq, len(entries))
+        if len(entries) == (self.fetch_group or _FETCH_GROUP_AUTO):
+            stacked = [np.stack([e.payload[i] for e in entries])
+                       for i in range(len(entries[0].payload))]
+            (host,), done = self._run(entries[0].wire, stacked, grouped=len(entries))
+            for g, e in enumerate(entries):
+                e.outputs, e.done, e.group = (host[g],), done, group
+        else:
+            for e in entries:
+                self._launch(e)
+                e.group = group
+        self._mark("gissued", entries[0].seq, len(entries))
+
+    # -- submit and drain ---------------------------------------------------
+
+    def submit(self, blocks, nums, rate: int, cookie=None) -> Optional[BatchResult]:
+        """Queue one batch: a (k, C, T) array or a list of (C, T) blocks,
+        k <= batch_size, with their frame numbers. Returns the oldest
+        batch's result once `depth` batches are in flight, else None."""
+        t0 = time.perf_counter()
+        seq = self._seq
+        self._seq += 1
+        self._mark("submit", seq)
+        if not isinstance(blocks, np.ndarray):
+            blocks = np.stack(blocks)
+        chunk = _bucket_pad(blocks, self.batch_size)
+        verify_sample_range(chunk, self.bps)
+        wire, payload, kind = self._upload(chunk)
+        nbytes = sum(a.nbytes for a in payload)
+        self._wire_kind = kind
+        self.upload_pack = wire is not None
+        self.wire_counts[wire] = self.wire_counts.get(wire, 0) + 1
+        self._mark("packed", seq, kind, nbytes)
+        batch = _Batch(blocks, np.asarray(nums), rate, cookie, payload, wire, kind, nbytes, seq)
+        open_ = self._group_open
+        if open_ and (open_[0].wire != wire or [a.shape for a in open_[0].payload]
+                      != [a.shape for a in payload]):
+            self._flush_group()  # mixed payloads never stack into one group
+        g = self._group_target()
+        if g > 1:
+            self._group_open.append(batch)
+            self._mark("parked", seq)
+            if len(self._group_open) >= g:
+                self._flush_group()
+        else:
+            self._launch(batch)
+        self._inflight.append(batch)
+        self.stats["submit_s"] += time.perf_counter() - t0
+        if len(self._inflight) >= (g + 1 if g > 1 else 2):
+            return self._drain_one()
+        return None
+
+    def _drain_one(self) -> BatchResult:
+        saturated = len(self._inflight) >= 2
+        batch = self._inflight.pop(0)
+        if batch.outputs is None:  # parked in the open group: ship it now
+            self._flush_group()
+        self._mark("drain_start", batch.seq)
         t0 = time.perf_counter()
         for event in batch.done:
             event.synchronize()
         t1 = time.perf_counter()
+        group = batch.group
+        if group is None or not group["waited"]:
+            # download-wait EWMA (a group's wait is shared by its batches)
+            share = t1 - t0 if group is None else (t1 - t0) / group["entries"]
+            prev = self._fetch_ewma
+            self._fetch_ewma = share if prev is None else 0.7 * prev + 0.3 * share
+            global _LAST_FETCH_EWMA
+            _LAST_FETCH_EWMA = self._fetch_ewma
+            if group is not None:
+                group["waited"] = True
+        self._mark("fetch_done", batch.seq)
         n = batch.blocks.shape[0]
         host = [h.numpy()[:n] for h in batch.outputs]
         if self.packer == "native2":
@@ -950,28 +1624,52 @@ class BatchRunner:
             enc, batch.blocks, batch.nums, self.cfg, self.nch, self.bps,
             batch.rate, self.block_size,
         )
+        t2 = time.perf_counter()
+        self._mark("asm_done", batch.seq)
+        self._feed_racer(batch, saturated, t2)
         self.stats["device_wait_s"] += t1 - t0
-        self.stats["pack_s"] += time.perf_counter() - t1
+        self.stats["pack_s"] += t2 - t1
         self.stats["batches"] += 1
+        self._mark("drain_done", batch.seq)
         return BatchResult(frames, batch.cookie)
 
-    def submit(self, blocks, nums, rate: int, cookie=None) -> Optional[BatchResult]:
-        """Queue one batch: a (k, C, T) array or a list of (C, T) blocks,
-        k <= batch_size, with their frame numbers. Returns the previous
-        batch's result, or None while nothing else is in flight."""
-        t0 = time.perf_counter()
-        if not isinstance(blocks, np.ndarray):
-            blocks = np.stack(blocks)
-        self._inflight.append(self._launch(blocks, np.asarray(nums), rate, cookie))
-        self.stats["submit_s"] += time.perf_counter() - t0
-        if len(self._inflight) > 1:
-            return self._finish(self._inflight.pop(0))
-        return None
+    def _feed_racer(self, batch: _Batch, saturated: bool, now: float) -> None:
+        """The racer's sample: the completion gap since the previous drain,
+        when this batch and the one drained before it share a wire kind (a
+        gap across a wire flip measures the mix). A group gives one sample
+        at its last batch, the gap over the whole group divided by G."""
+        group, kind = batch.group, batch.kind
+        if group is not None:
+            group["left"] -= 1
+            if group["left"]:
+                return
+        if self._last_drain is not None and saturated and kind == self._prev_drain_kind:
+            if group is None:
+                self._est.update(batch.nbytes, now - self._last_drain, kind)
+            else:
+                g = group["entries"]
+                self._est.update(group["nbytes"] / g, (now - self._last_drain) / g, kind)
+        self._prev_drain_kind = kind
+        self._last_drain = now
 
     def drain(self) -> Iterator[BatchResult]:
         """Pack every batch still in flight, oldest first."""
+        self._flush_group()
         while self._inflight:
-            yield self._finish(self._inflight.pop(0))
+            yield self._drain_one()
+
+    def report(self) -> dict:
+        """The runner's wire, group and program counts, for `stats`."""
+        out = {
+            "wire_batches": {repr(k): v for k, v in self.wire_counts.items()},
+            "grouped_batches": self.grouped_batches,
+            "captures": self.captures,
+            "capture_s": self.capture_s,
+            "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
+        }
+        if self.timeline is not None:
+            out["timeline"] = list(self.timeline)
+        return out
 
 
 def encode_with_fixed_block_size(
@@ -984,6 +1682,7 @@ def encode_with_fixed_block_size(
     strict_lpc: Optional[bool] = None,
     packer: str = "auto",
     mesh="auto",
+    upload_pack="env",
 ) -> Stream:
     """Batched stream encoder on PyTorch (public entry).
 
@@ -1011,10 +1710,20 @@ def encode_with_fixed_block_size(
     places the shards itself; None keeps one device. Blocks are
     independent, so the mesh changes throughput, never bytes.
 
+    `upload_pack`: "env" (the default) reads FLACENC_PACKED_UPLOAD ("1" the
+    dense packed wires, "0" raw, "d" the delta16 wire, unset the per-wire
+    racer, which runs for the "native2" packer on a card); True forces the
+    dense wires (raises when bps > 24 or the block size is not a multiple
+    of 16), "delta" the delta16 wire, False raw PCM, "auto" the racer
+    anywhere. FLACENC_FETCH_GROUP=G runs G batches per round trip (see
+    `BatchRunner`). The wire and G never change the bytes.
+
     `stats`: optional dict filled in place with wall-clock totals: read_s,
-    submit_s (pad, range check, strict arrays, upload, launch),
+    submit_s (pad, range check, wire pack, strict arrays, upload, launch),
     device_wait_s (waiting for the downloads, the residuals' included),
-    pack_s, batches, frames and wall_s."""
+    pack_s, batches, frames and wall_s; and the runner's wire_batches
+    (batches per upload wire), grouped_batches, captures (CUDA graphs this
+    encode captured) and link_mbps, plus timeline with FLACENC_TIMELINE=1."""
     cfg = config.inner if isinstance(config, Verified) else config
     strict_lpc = resolve_strict(strict_lpc, cfg)
     nch = src.channels()
@@ -1035,7 +1744,7 @@ def encode_with_fixed_block_size(
                 cand = -(-max(cand, n_dev) // n_dev) * n_dev
             batch_size = min(batch_size, cand)
     runner = BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc,
-                         packer=packer, mesh=mesh)
+                         packer=packer, mesh=mesh, upload_pack=upload_pack)
     # MD5 on a worker thread behind a bounded queue (par.rs:196-277)
     context = AsyncContext(bps, nch)
 
@@ -1055,7 +1764,9 @@ def encode_with_fixed_block_size(
         # bulk path: whole (k, C, T) batches with one md5 fill each
         while True:
             t0 = time.perf_counter()
+            runner._mark("read_start", n_full // batch_size)
             bulk = src.read_blocks_batch(batch_size, block_size, context)
+            runner._mark("read_done", n_full // batch_size)
             read_s += time.perf_counter() - t0
             if bulk is None:
                 break
@@ -1107,5 +1818,5 @@ def encode_with_fixed_block_size(
     )
     if stats is not None:
         stats.update(wall_s=time.perf_counter() - t_start, frames=len(frames),
-                     read_s=read_s, **runner.stats)
+                     read_s=read_s, **runner.stats, **runner.report())
     return stream

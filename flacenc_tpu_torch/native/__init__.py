@@ -2,10 +2,12 @@
 
 The packer consumes the device pipeline's decisions and the raw blocks and
 emits FLAC frame bytes in one call per batch (the bit-serial stage the
-reference implements in ``src/bitsink.rs``/``bitrepr.rs``). The batched
-path has no fallback: without the library, `pack_frames_recompute`,
-`pack_frames`, `compute_errors` and strict mode raise (the "python" packer
-needs none of them). The parser, the decoder's LPC synthesis and the numpy
+reference implements in ``src/bitsink.rs``/``bitrepr.rs``); it also scans
+and packs the upload wires of ``ops/upack.py``. The batched path has no
+fallback: without the library, `pack_frames_recompute`, `pack_frames`,
+`compute_errors`, `pack_upload`, `pack_rice` and strict mode raise (the
+"python" packer needs none of them; the wire scans return NotImplemented
+and ``ops/upack.py`` takes its numpy path). The parser, the decoder's LPC synthesis and the numpy
 oracle's strict estimates use the library when it loads and their Python
 code otherwise. The library is built on first use (``build.py``).
 """
@@ -418,3 +420,155 @@ def parse_residual(data: bytes, bit_offset: int, block_size: int, warmup: int):
         raise ValueError("malformed residual")
     nparts = 1 << int(order[0])
     return int(new_pos), int(order[0]), params[:nparts].copy(), q, r
+
+
+# ---------------------------------------------------------------------------
+# upload wires (ops/upack.py): scans and packs of a (..., T) int16/int32 chunk
+# ---------------------------------------------------------------------------
+
+
+def _chunk(chunk: np.ndarray):
+    """(contiguous array, its ctype, narrow): int16 chunks are read as they
+    are (the `16` entry points sign-extend inline), others as int32."""
+    narrow = chunk.dtype == np.int16
+    x = np.ascontiguousarray(chunk) if narrow else np.ascontiguousarray(chunk, dtype=np.int32)
+    return x, (ctypes.c_int16 if narrow else ctypes.c_int32), narrow
+
+
+def scan_upload(chunk: np.ndarray):
+    """C++ single-pass (order, width) choice of the fixed-width wire:
+    the narrowest format that fits the batch's d1/d2 ranges, None when
+    none fits (the caller uploads raw), NotImplemented without the
+    library (`ops.upack.scan` is its numpy twin)."""
+    lib = _load()
+    if lib is None:
+        return NotImplemented
+    fn = lib.flacenc_scan_upload
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = ctypes.c_int32
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+    x = np.ascontiguousarray(chunk, dtype=np.int32)
+    T = x.shape[-1]
+    rows = x.size // T if T else 0
+    meta = np.zeros(2, np.int32)
+    ok = fn(_ptr(x, ctypes.c_int32), rows, T, _ptr(meta, ctypes.c_int32))
+    return (int(meta[0]), int(meta[1])) if ok else None
+
+
+def pack_upload(chunk: np.ndarray, order: int, width: int):
+    """C++ single-pass delta pack at a fixed (order, width): (..., T) int,
+    T % 16 == 0 -> ((..., T*width/32) uint32 words, (..., 2) int32
+    firsts). Raises without the library."""
+    lib = _require()
+    x, in_ctype, narrow = _chunk(chunk)
+    fn = lib.flacenc_pack_upload16 if narrow else lib.flacenc_pack_upload
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = None
+        fn.argtypes = [
+            ctypes.POINTER(in_ctype), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
+        ]
+    T = x.shape[-1]
+    if T % 16 or T * width % 32:
+        raise ValueError(f"block size {T} does not hold whole {width}-bit field groups")
+    rows = x.size // T if T else 0
+    words = np.empty(x.shape[:-1] + (T * width // 32,), np.uint32)
+    firsts = np.empty(x.shape[:-1] + (2,), np.int32)
+    fn(_ptr(x, in_ctype), rows, T, order, width,
+       _ptr(words, ctypes.c_uint32), _ptr(firsts, ctypes.c_int32))
+    return words, firsts
+
+
+def scan_rice(chunk: np.ndarray):
+    """C++ single-pass rice-wire statistics: (..., 2, 26) int64 sums
+    S[..., order-1, p] = sum_t(zigzag(delta_order)[t] >> p) for orders
+    1-2, or NotImplemented without the library."""
+    lib = _load()
+    if lib is None:
+        return NotImplemented
+    fn = lib.flacenc_scan_rice
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = None
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+    x = np.ascontiguousarray(chunk, dtype=np.int32)
+    T = x.shape[-1]
+    rows = x.size // T if T else 0
+    sums = np.zeros((rows, 2, 26), np.int64)
+    fn(_ptr(x, ctypes.c_int32), rows, T, _ptr(sums, ctypes.c_int64))
+    return sums.reshape(x.shape[:-1] + (2, 26))
+
+
+def rice4_supported() -> bool:
+    """True when the loaded library has the order-3/4 wire entry points
+    (the port builds its library from its own source, so it always has)."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "flacenc_scan_wire4")
+
+
+def scan_wire(chunk: np.ndarray, stride: int = 1):
+    """C++ fused wire scan, one pass for both upload-wire statistics:
+    ((..., NORD, 26) int64 rice sums for delta orders 1..NORD (4 here),
+    (4,) int32 [d1_min, d1_max, d2_min, d2_max]), or NotImplemented
+    without the library. `stride` > 1 samples the rice sums (every
+    stride-th sample, unscaled); the min/max stay exact."""
+    lib = _load()
+    if lib is None:
+        return NotImplemented
+    x, in_ctype, narrow = _chunk(chunk)
+    four = hasattr(lib, "flacenc_scan_wire4")
+    if four:
+        fn = lib.flacenc_scan_wire16_4 if narrow else lib.flacenc_scan_wire4
+    else:
+        fn = lib.flacenc_scan_wire16 if narrow else lib.flacenc_scan_wire
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = None
+        fn.argtypes = [
+            ctypes.POINTER(in_ctype), ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ]
+    T = x.shape[-1]
+    rows = x.size // T if T else 0
+    nord = 4 if four else 2
+    sums = np.zeros((rows, nord, 26), np.int64)
+    mm = np.zeros(4, np.int32)
+    fn(_ptr(x, in_ctype), rows, T, stride, _ptr(sums, ctypes.c_int64), _ptr(mm, ctypes.c_int32))
+    return sums.reshape(x.shape[:-1] + (nord, 26)), mm
+
+
+def pack_rice(chunk: np.ndarray, order: int, p: int, wu: int):
+    """C++ single-pass rice-wire pack at a fixed (order, p) with a static
+    per-row unary budget of `wu` words: (..., T) int -> (lo (..., T*p/32)
+    u32, unary (..., wu) u32, firsts (..., 2 or 4) i32: [x0, x1] for orders
+    1-2, the four difference warm-ups for orders 3-4), or None when a row
+    overflows the budget. Raises without the library."""
+    lib = _require()
+    if order > 2 and not rice4_supported():
+        raise RuntimeError("the native library has no order-3/4 wire entry points")
+    x, in_ctype, narrow = _chunk(chunk)
+    fn = lib.flacenc_pack_rice16 if narrow else lib.flacenc_pack_rice
+    if getattr(fn, "argtypes", None) is None:
+        fn.restype = ctypes.c_int32
+        fn.argtypes = [
+            ctypes.POINTER(in_ctype), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+    T = x.shape[-1]
+    if T * p % 32:
+        raise ValueError(f"block size {T} does not hold whole {p}-bit low-plane groups")
+    rows = x.size // T if T else 0
+    lo = np.empty(x.shape[:-1] + (T * p // 32,), np.uint32)
+    unary = np.empty(x.shape[:-1] + (wu,), np.uint32)
+    firsts = np.empty(x.shape[:-1] + (2 if order <= 2 else 4,), np.int32)
+    ok = fn(_ptr(x, in_ctype), rows, T, order, p, wu,
+            _ptr(lo, ctypes.c_uint32), _ptr(unary, ctypes.c_uint32),
+            _ptr(firsts, ctypes.c_int32))
+    return (lo, unary, firsts) if ok else None

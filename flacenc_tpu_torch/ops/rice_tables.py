@@ -17,8 +17,12 @@ moves 6.29 MB, 1.88 us at the H100's 3.35 TB/s; the source's note gives the
 design.
 
 `rice_cost_tables` launches the kernel for a CUDA tensor and runs the plain
-PyTorch version, `rice_cost_tables_plain`, only for a CPU tensor. `launches`
-counts kernel launches.
+PyTorch version, `rice_cost_tables_plain`, only for a CPU tensor. The
+kernels count their own runs: each adds one to a counter in its card's
+memory every time it runs, so a launch that a captured CUDA graph replays
+counts like one made from the host. `launches()` reads the counters of all
+cards (it waits for the work queued on them), `reset_launches()` sets them
+to 0.
 """
 
 from __future__ import annotations
@@ -37,9 +41,8 @@ MMA_MAX_PART = 1024  # csrc/rice_tables.cu kMmaMaxPart
 MAX_PARTS_PER_BLOCK = 16  # csrc/rice_tables.cu kMaxPartsPerBlock
 STEPS_PER_BLOCK = 16  # 32-sample steps a transpose block aims for: 4 per warp
 
-launches = 0  # kernel launches since import (reset by callers that count)
-
 _lib: Optional[ctypes.CDLL] = None
+_RUNS: dict = {}  # CUDA device -> (1,) int64 tensor the kernels add one to per run
 
 
 def encode_signbit(v: torch.Tensor) -> torch.Tensor:
@@ -99,13 +102,39 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         lib.flacenc_rice_cost_tables_mma.restype = ctypes.c_int
-        lib.flacenc_rice_cost_tables_mma.argtypes = args + [ctypes.c_void_p]
+        lib.flacenc_rice_cost_tables_mma.argtypes = args + [ctypes.c_void_p] * 2
         lib.flacenc_rice_cost_tables_transpose.restype = ctypes.c_int
-        lib.flacenc_rice_cost_tables_transpose.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+        lib.flacenc_rice_cost_tables_transpose.argtypes = args + [ctypes.c_int] + [
+            ctypes.c_void_p] * 2
         lib.flacenc_cuda_error_string.restype = ctypes.c_char_p
         lib.flacenc_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
+
+
+def _runs_counter(dev: torch.device) -> torch.Tensor:
+    """The run counter on `dev`, made (outside any capture) on first use."""
+    runs = _RUNS.get(dev)
+    if runs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "rice_cost_tables was first called on this card inside a CUDA graph "
+                "capture: call it once outside the capture first (a warm-up)"
+            )
+        with torch.inference_mode(False):  # a normal tensor: resettable outside the mode
+            runs = _RUNS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return runs
+
+
+def launches() -> int:
+    """Kernel runs on every card since the last `reset_launches()`, as the
+    cards counted them (waits for the work queued before the read)."""
+    return sum(int(runs.item()) for runs in _RUNS.values())
+
+
+def reset_launches() -> None:
+    for runs in _RUNS.values():
+        runs.zero_()
 
 
 def rice_cost_tables(
@@ -114,9 +143,9 @@ def rice_cost_tables(
     """(B, K, T) int32 residuals, (B, K) int32 warmups ->
     (B, K, 2**finest_order, 32) int32 clamped shifted sums.
 
-    CUDA tensors go through the hand kernel; CPU tensors through
-    `rice_cost_tables_plain`. Anything else raises."""
-    global launches
+    CUDA tensors go through the hand kernel, which adds one to its card's
+    run counter (`launches`); CPU tensors through `rice_cost_tables_plain`.
+    Anything else raises."""
     if errors.dim() != 3 or errors.dtype != torch.int32:
         raise ValueError(
             f"errors must be (B, K, T) int32, got {tuple(errors.shape)} {errors.dtype}"
@@ -144,16 +173,16 @@ def rice_cost_tables(
     plan = launch_plan(T, finest_order, errors.data_ptr())
     lib = _load()
     with torch.cuda.device(errors.device):
+        runs = _runs_counter(errors.device).data_ptr()
         stream = torch.cuda.current_stream(errors.device).cuda_stream
         args = (errors.data_ptr(), warmup.data_ptr(), out.data_ptr(), B * K, T, finest_order)
         if plan.kernel == "mma":
-            rc = lib.flacenc_rice_cost_tables_mma(*args, stream)
+            rc = lib.flacenc_rice_cost_tables_mma(*args, runs, stream)
         else:
-            rc = lib.flacenc_rice_cost_tables_transpose(*args, plan.parts_per_block, stream)
+            rc = lib.flacenc_rice_cost_tables_transpose(*args, plan.parts_per_block, runs, stream)
     if rc != 0:
         raise RuntimeError(
             "rice_cost_tables launch failed: "
             + lib.flacenc_cuda_error_string(rc).decode()
         )
-    launches += 1
     return out

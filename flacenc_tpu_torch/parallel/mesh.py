@@ -58,7 +58,9 @@ def block_mesh(devices: Optional[Sequence] = None) -> BlockMesh:
 
 
 class ShardedEncoder:
-    """One `BatchEncoder` replica per mesh device (`shard_encoder_fn`).
+    """One replica per mesh device: a copy of a `BatchEncoder` on it
+    (`shard_encoder_fn`), or any callable that runs the forward there, such
+    as a program of ``models.batch_encoder``'s registry.
 
     `launch` splits every input's batch axis into equal contiguous shards,
     copies shard i to device i (asynchronously from pinned memory) and runs
@@ -67,9 +69,11 @@ class ShardedEncoder:
     what the single-device module returns, in batch order, on the mesh's
     first device."""
 
-    def __init__(self, encoder: torch.nn.Module, mesh: BlockMesh):
+    def __init__(self, replicas: Sequence, mesh: BlockMesh):
+        if len(replicas) != mesh.size:
+            raise ValueError(f"{len(replicas)} replicas for a {mesh.size}-device mesh")
         self.mesh = mesh
-        self.replicas = [copy.deepcopy(encoder).to(d) for d in mesh.devices]
+        self.replicas = list(replicas)
 
     def launch(self, *inputs: torch.Tensor) -> List[Tuple[slice, object]]:
         n = self.mesh.size
@@ -102,7 +106,7 @@ def shard_encoder_fn(encoder: torch.nn.Module, mesh: BlockMesh) -> ShardedEncode
     """Wraps a single-device `BatchEncoder` into a batch-split one over
     `mesh`. Each shard runs the same program as the single device, so no
     collective appears in the hot path and the outputs are identical."""
-    return ShardedEncoder(encoder, mesh)
+    return ShardedEncoder([copy.deepcopy(encoder).to(d) for d in mesh.devices], mesh)
 
 
 def total_bits_psum(sf_bits, mesh: BlockMesh) -> torch.Tensor:

@@ -51,6 +51,11 @@ class PipelineStats:
     md5_wait_s: float = 0.0     # waiting on the MD5 thread at the end
     md5_overdue: int = 0        # producer stalls on the bounded MD5 queue
     tail_frames: int = 0
+    wire_batches: dict = dataclasses.field(default_factory=dict)  # upload wire -> batches
+    grouped_batches: int = 0    # batches through grouped round trips
+    captures: int = 0           # CUDA graphs this encode captured
+    capture_s: float = 0.0      # wall seconds of those captures (inside submit_s)
+    link_mbps: Optional[float] = None  # the racer's latest upload rate
 
 
 class _Md5Thread:
@@ -120,11 +125,12 @@ def encode_corpus(
     strict_lpc: Optional[bool] = None,
     packer: str = "auto",
     mesh="auto",
+    upload_pack="env",
 ) -> Tuple[Dict[str, Stream], PipelineStats]:
     """Encode many sources through shared device batches.
 
     All sources must share channels and bits per sample; sample rates may
-    differ. `device`, `strict_lpc`, `packer` and `mesh` act as in
+    differ. `device`, `strict_lpc`, `packer`, `mesh` and `upload_pack` act as in
     `encode_with_fixed_block_size` (the same `resolve_strict` rule, the
     same `BatchRunner`). Each returned stream is byte-identical to the file
     encoded alone. Returns ({name: Stream}, PipelineStats)."""
@@ -153,7 +159,7 @@ def encode_corpus(
     total_samples = [0] * len(sources)
 
     runner = be.BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc,
-                            packer=packer, mesh=mesh)
+                            packer=packer, mesh=mesh, upload_pack=upload_pack)
     md5_thread = _Md5Thread(stats)
     # pending (file, frame number, block) rows per sample rate
     pending: Dict[int, List[Tuple[int, int, np.ndarray]]] = {}
@@ -226,6 +232,12 @@ def encode_corpus(
     md5_thread.check()
     for key in ("submit_s", "device_wait_s", "pack_s", "batches"):
         setattr(stats, key, runner.stats[key])
+    report = runner.report()
+    stats.wire_batches = report["wire_batches"]
+    stats.grouped_batches = report["grouped_batches"]
+    stats.captures = report["captures"]
+    stats.capture_s = report["capture_s"]
+    stats.link_mbps = report["link_mbps"]
 
     results: Dict[str, Stream] = {}
     for fi, (name, src) in enumerate(sources):

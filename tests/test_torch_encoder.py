@@ -108,8 +108,24 @@ def test_split_decisions_roundtrip():
     {"packed_wire": ("d", 2)}, {"grouped": 4},
 ])
 def test_unported_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T, **variant)
+    """The upload wire and grouped variants raised NotImplementedError until
+    they were ported; now only their malformed forms raise, and the
+    well-formed ones give the plain forward's decisions."""
+    bad = {"packed_wire": ("z", 2)} if "packed_wire" in variant else {"grouped": -1}
+    with pytest.raises(ValueError):
+        tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T, **bad)
+    from flacenc_tpu_torch.ops import upack
+
+    blocks = np.clip(np.cumsum(np.random.default_rng(9).integers(-200, 201, (2, 2, T)), -1),
+                     -32768, 32767).astype(np.int32)
+    plain = tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T)(torch.from_numpy(blocks))
+    enc = tbe.BatchEncoder(tconfig.Encoder(), 2, 16, T, **variant)
+    if "packed_wire" in variant:
+        _, (d, firsts) = upack.pack_delta(blocks, 2)
+        got = enc(torch.from_numpy(d), torch.from_numpy(firsts))
+    else:
+        got = enc(torch.from_numpy(np.stack([blocks] * 4)))[3]
+    assert torch.equal(got, plain)
 
 
 def _set(path, value):
@@ -235,7 +251,10 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
     assert stats["frames"] == full + (n_samples % T > 0)
     assert stats["batches"] == -(-full // min(batch_size, max(8, full)))
     assert set(stats) == {"read_s", "submit_s", "device_wait_s", "pack_s",
-                          "batches", "frames", "wall_s"}
+                          "batches", "frames", "wall_s", "wire_batches", "grouped_batches",
+                          "captures", "capture_s", "link_mbps"}
+    assert stats["wire_batches"] == ({"None": stats["batches"]} if stats["batches"] else {})
+    assert (stats["grouped_batches"], stats["captures"]) == (0, 0)  # eager on the CPU
 
 
 def test_stream_mono_24bit_per_block_source_matches_oracle():

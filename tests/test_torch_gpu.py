@@ -2,7 +2,8 @@
 transpose) against their plain PyTorch version, and the whole device
 program on CUDA against the CPU on
 every path (mono, stereo, 24-bit, fixed-only, BitCount, strict, direct MSE
-and IRLS).
+and IRLS); the captured CUDA graphs of the program registry against their
+eager forwards, and the upload wires and grouped round trips on the card.
 
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
@@ -38,10 +39,9 @@ def _kernel_vs_plain(errors, warmup, device):
     finest = rice.finest_partition_order(errors.shape[-1], 64)
     e = torch.from_numpy(errors).to(device)
     w = torch.from_numpy(warmup).to(device)
-    before = rice_tables.launches
+    before = rice_tables.launches()
     got = rice_tables.rice_cost_tables(e, w, finest)
-    torch.cuda.synchronize()
-    assert rice_tables.launches == before + 1
+    assert rice_tables.launches() == before + 1  # counted by the kernel on the card
     assert torch.equal(got, rice_tables.rice_cost_tables_plain(e, w, finest))
 
 
@@ -197,13 +197,39 @@ def test_mesh_of_replicas_on_one_card(cuda):
     x = _stereo(9 * 4096 + 5)
     cfg = config.Encoder().into_verified()
     m = mesh.block_mesh([cuda, cuda])
-    before = rice_tables.launches
+    before, forwards = rice_tables.launches(), tbe.PROGRAM_COUNTS["forwards"]
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=m).to_bytes()
-    assert rice_tables.launches - before == 2 * 3 * 2  # 3 batches x 2 shards x 2 per forward
+    forwards = tbe.PROGRAM_COUNTS["forwards"] - forwards
+    # 3 batches x 2 shards, plus each replica's capture warm-up on a new key
+    assert forwards in (3 * 2, 3 * 2 + 2)
+    assert rice_tables.launches() - before == 2 * forwards  # 2 per forward
     assert got == flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=None).to_bytes()
     assert mesh.dryrun_multichip(2)["total_bits"] > 0
+
+
+def test_mesh_replicas_captured_out_of_order(cuda):
+    """Replica 1's graph captured before replica 0's: a mesh replays every
+    replica before it downloads any, and each replica's captures have a
+    pool of their own, so neither replay overwrites the other's outputs."""
+    from flacenc_tpu_torch.parallel import mesh
+
+    x = _stereo(9 * 4096 + 5)
+    cfg = config.Encoder().into_verified()
+    m = mesh.block_mesh([cuda, cuda])
+    dev = m.devices[1]
+    shapes = (((2, 2, 4096), "torch.int16"),)
+    first = tbe.program_for(cfg.inner, 2, 16, 4096, False, "native2", None, shapes, dev,
+                            replica=(repr(m), 1))
+    with torch.inference_mode():
+        first(torch.zeros((2, 2, 4096), dtype=torch.int16, device=dev))
+    kw = dict(batch_size=4, device="cuda", upload_pack=False)
+    got = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, mesh=m, **kw).to_bytes()
+    assert first.graph is not None and first.key in tbe._PROGRAMS
+    assert got == flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, mesh=None, **kw).to_bytes()
 
 
 def test_fuzz_tiers_on_card(cuda):
@@ -212,3 +238,69 @@ def test_fuzz_tiers_on_card(cuda):
     assert fuzz.run(range(5), strict=True)["cases"] == 5
     out = fuzz.run(range(10))
     assert out["cases"] == 10 and all(d["strict_equal"] for d in out["divergences"])
+
+
+def _walk(n, seed=3):
+    rng = np.random.default_rng(seed)
+    x = np.zeros(2 * n, np.int32)
+    for ch in range(2):
+        x[ch::2] = np.clip(np.cumsum(rng.integers(-500, 501, n)), -30000, 30000)
+    return x
+
+
+@pytest.mark.parametrize("up,group,strict", [
+    (True, "1", False), ("delta", "1", False), ("auto", "1", False), (False, "4", False),
+    (True, "2", False), (True, "1", True),
+])
+def test_wires_groups_and_graphs_on_card(cuda, up, group, strict, monkeypatch):
+    """Every wire, G and strict under a packed wire give the raw upload's
+    bytes on the card, and every graph the registry captured replays to
+    its eager forward's outputs."""
+    monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
+    cfg = config.Encoder().into_verified()
+    for x in (_stereo(13 * 2048 + 77), _walk(13 * 2048 + 5)):
+        kw = dict(batch_size=2, device="cuda", strict_lpc=strict)
+        stats = {}
+        got = flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, MemSource(x, 2, 16, 44100), 2048, upload_pack=up, stats=stats, **kw).to_bytes()
+        monkeypatch.setenv("FLACENC_FETCH_GROUP", "1")
+        raw = flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, MemSource(x, 2, 16, 44100), 2048, upload_pack=False, **kw).to_bytes()
+        monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
+        assert got == raw, stats["wire_batches"]
+        if group != "1":
+            assert stats["grouped_batches"] == stats["batches"]
+    progs = [p for p in tbe._PROGRAMS.values() if p.capture]
+    assert progs and all(p.checked for p in progs)
+    with torch.inference_mode():
+        for p in progs:
+            p.graph.replay()
+            out = p.static_out
+            out = out.clone() if isinstance(out, torch.Tensor) else tuple(t.clone() for t in out)
+            assert tbe._outputs_equal(out, p.module(*p.static_in)), p.key[5:]
+
+
+def test_replays_count_their_rice_launches(cuda):
+    """The card counts the Rice kernel's runs inside graph replays as it
+    counts eager launches: 2 per forward, the capture's eager warm-up
+    included; direct MSE stays eager."""
+    x = _stereo(5 * 4096)
+    for use_direct_mse, capture in ((False, True), (True, False)):
+        cfg = config.Encoder()
+        cfg.subframe_coding.qlpc.use_direct_mse = use_direct_mse
+        rice_tables.reset_launches()
+        forwards = tbe.PROGRAM_COUNTS["forwards"]
+        flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=2, device="cuda",
+            upload_pack=False)
+        forwards = tbe.PROGRAM_COUNTS["forwards"] - forwards
+        assert rice_tables.launches() == 2 * forwards and forwards >= 3
+        shapes = (((2, 2, 4096), "torch.int16"),)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        prog = tbe.program_for(cfg, 2, 16, 4096, False, "native2", None, shapes, dev)
+        assert prog.capture == capture and (prog.graph is not None) == capture
+        if capture:
+            rice_tables.reset_launches()
+            with torch.inference_mode():
+                prog.graph.replay()
+            assert rice_tables.launches() == 2  # one replay runs both searches

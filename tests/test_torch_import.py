@@ -77,6 +77,32 @@ assert cli.main(['encode', 'in.wav', '-o', 'oracle.flac', '--oracle']) == 0
 assert open('oracle.flac', 'rb').read() == open('o.flac', 'rb').read()
 """
 
+_WIRES_PROBE = """
+import os
+import numpy as np
+import flacenc_tpu_torch
+from flacenc_tpu_torch import config, sigen
+from flacenc_tpu_torch.models import batch_encoder as be
+from flacenc_tpu_torch.ops import upack
+from flacenc_tpu_torch.source import MemSource
+
+n = 5000
+x = np.zeros(2 * n, np.int32)
+x[0::2] = sigen.Sine(128, 0.4).noise_with_seed(1, 0.01).to_vec_quantized(16, n)
+x[1::2] = sigen.Sine(130, 0.4).noise_with_seed(2, 0.01).to_vec_quantized(16, n)
+out = set()
+for up, group, strict in ((False, "1", False), (True, "1", False), ("delta", "1", False),
+                          ("auto", "2", False), (True, "1", True), (False, "1", True)):
+    os.environ["FLACENC_FETCH_GROUP"] = group
+    s = flacenc_tpu_torch.encode_with_fixed_block_size(
+        config.Encoder(), MemSource(x, 2, 16, 44100), 1024, batch_size=2, device="cpu",
+        upload_pack=up, strict_lpc=strict)
+    out.add((strict, s.to_bytes()))
+assert len(out) == 2
+be.wait_all_warms()
+assert upack.try_pack(x[: 4 * 2048].reshape(4, 1024, 2).transpose(0, 2, 1).copy()) is not None
+"""
+
 # printed last by every probe: the modules of JAX or the JAX package loaded
 _REPORT = """
 import sys
@@ -104,6 +130,10 @@ def test_packers_mesh_fuzz_and_verify_leave_jax_out(tmp_path):
     _run_probe(_PATHS_PROBE, tmp_path)
 
 
+def test_upload_wires_groups_and_registry_leave_jax_out(tmp_path):
+    _run_probe(_WIRES_PROBE, tmp_path)
+
+
 def test_cli_encode_and_decode_leave_jax_out(tmp_path):
     _run_probe(_CLI_PROBE, tmp_path)
 
@@ -115,6 +145,7 @@ def test_no_jax_import_in_sources():
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     assert len(paths) > 30
+    assert os.path.join(PKG, "ops", "upack.py") in paths
     forbidden = re.compile(r"^\s*(import jax|from jax|(from|import) flacenc_tpu(\.|\s|$))", re.M)
     for path in paths:
         with open(path) as f:

@@ -206,12 +206,13 @@ def test_wrapper_rejects_bad_input(bad):
 
 
 def test_cpu_tensor_takes_plain_path_without_counting():
-    before = rice_tables.launches
+    before = rice_tables.launches()
     rice_tables.rice_cost_tables(
         torch.zeros((1, 1, 128), dtype=torch.int32),
         torch.zeros((1, 1), dtype=torch.int32), 1,
     )
-    assert rice_tables.launches == before
+    assert rice_tables.launches() == before
+    assert all(dev.type == "cuda" for dev in rice_tables._RUNS)  # no counter for the CPU
 
 
 # ---- the CUDA kernel's arithmetic and indexing, held on the CPU ----
