@@ -44,7 +44,13 @@ the card, each at a size users run:
 - the other fuzz tiers: plain (50), mutate (60), upload (25, its coverage
   gate held) and cli (10);
 - the report generator (5 s programs) and both examples, the corpus
-  example's files equal to the corpus phase's streams.
+  example's files equal to the corpus phase's streams;
+- the measurement programs: ``tools.bench`` (60 s, 3 trials 1 s apart,
+  batch 256, the strict same-corpus encode and the device step; its best
+  stream decoded), ``tools.hwconfigs`` (the five BASELINE configs at 30 s,
+  1 s gaps, every row without an error) and ``tools.microbench`` at
+  --reps 10 with its kernel sweep (the kernel equal to its plain version on
+  all 9 shapes), each printing its JSON lines.
 
 Every encode runs through the port's program registry: on the card each
 forward is a captured CUDA graph replayed batch after batch (the direct
@@ -1267,6 +1273,92 @@ def graph_checks(dev) -> dict:
     return out
 
 
+def captured(main, argv) -> tuple:
+    """Runs a tool's `main(argv)` and echoes its standard output; returns
+    (its exit code, the JSON objects it printed one to a line)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def measurement_phase(phases: Phases) -> None:
+    """o. The port's measurement programs on the card: the bench at 60 s,
+    3 trials 1 s apart, batch 256 (its best trial's stream decoded by both
+    decoders with its MD5 checked; 2 Rice runs for every forward of the whole
+    run, the device step's included); the five-config matrix at 30 s with 1 s
+    gaps (every row without an error; 1 or 2 Rice runs a forward); the
+    microbenchmark at --reps 10 and its kernel sweep (the kernel equal to its
+    plain version on all 9 shapes)."""
+    from flacenc_tpu_torch.tools import bench, hwconfigs, make_audio, microbench
+
+    env = {"BENCH_SECONDS": "60", "BENCH_WARM_SECONDS": "20", "BENCH_TRIALS": "3",
+           "BENCH_TRIAL_GAP_S": "1", "BENCH_BATCH": "256"}
+    saved = {key: os.environ.get(key) for key in env}
+    with timed("o (bench: 60 s, 3 trials, batch 256)"):
+        os.environ.update(env)
+        try:
+            counts = Counts()
+            extra, data = bench.main_worker(phases.dev)
+            launches, forwards = counts.read()
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    del os.environ[key]
+                else:
+                    os.environ[key] = value
+        check_launches("bench", launches, forwards, rice_per_forward(default_config(), 4096),
+                       extra["batches"])
+        audio = make_audio(60)
+        check_lossless(data, audio, 2, "bench")
+        if extra["card"] != phases.card or extra["device_step_batch"] != 256:
+            raise AssertionError(f"bench: {extra}")
+        if extra["bits_per_sample"] != round(len(data) * 8 / len(audio), 4):
+            raise AssertionError("bench: bits_per_sample is not its stream's")
+        phases.launches["bench"] = launches
+        print(f"bench: best trial decoded by both decoders, MD5 matches, launches {launches} == "
+              f"2 x {forwards} forwards; trials {extra['trials_x_realtime']}, device step "
+              f"{extra['device_step_ms_per_batch']} ms at batch 256 ({phases.card})")
+
+    with tempfile.TemporaryDirectory() as workdir, timed("o (hwconfigs --seconds 30 --gap 1)"):
+        table = os.path.join(workdir, "hwconfigs.md")
+        counts = Counts()
+        rc, rows = captured(hwconfigs.main, ["--seconds", "30", "--gap", "1", "--out", table])
+        launches, forwards = counts.read()
+        if rc or len(rows) != 5 or any("error" in r for r in rows):
+            raise AssertionError(f"hwconfigs: exit {rc}, rows {rows}")
+        # the fixed-only forwards run one Rice search, the others two
+        if not 0 < forwards <= launches <= 2 * forwards:
+            raise AssertionError(f"hwconfigs: {launches} Rice runs in {forwards} forwards")
+        with open(table) as f:
+            text = f.read()
+        if phases.card not in text:
+            raise AssertionError("hwconfigs: the table does not name the card")
+        phases.launches["hwconfigs"] = launches
+        print("hwconfigs: " + " | ".join(line for line in text.splitlines()
+                                          if line.startswith(("Backend", "| "))))
+
+    with timed("o (microbench --reps 10, then --kernel-sweep)"):
+        counts = Counts()
+        rc, _ = captured(microbench.main, ["--reps", "10"])
+        rc_sweep, sweep_lines = captured(microbench.main, ["--kernel-sweep", "--reps", "10"])
+        launches, _ = counts.read()
+        sweep = sweep_lines[-1]["sweep"]
+        if rc or rc_sweep or len(sweep) != 9 or any(r["max_abs_err"] for r in sweep):
+            raise AssertionError(f"microbench: exit {rc} / {rc_sweep}, sweep {sweep}")
+        if launches == 0:
+            raise AssertionError("microbench: the Rice kernel was never launched")
+        phases.launches["microbench"] = launches
+        print(f"microbench: kernel == plain on all {len(sweep)} sweep shapes ({phases.card})")
+
+
 def run_paths(phases: Phases, cli_args=()) -> None:
     """Every encode path of the port, through its public entries, on
     `phases.dev`, each checked as the module docstring says."""
@@ -1365,6 +1457,10 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     wire_phases(phases)
     phases.graphs = graph_checks(dev)
 
+    # 15. the measurement programs (after the graph checks: their batch-256
+    # programs would push the main path's out of the registry)
+    measurement_phase(phases)
+
 
 def main(argv=None) -> int:
     import argparse
@@ -1447,7 +1543,7 @@ def main(argv=None) -> int:
                                    for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s ({card})")
-    # 15. kernels, then the result
+    # 16. kernels, then the result
     kernel.update(launches=phases.launches["main path"], launches_by_path=phases.launches)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

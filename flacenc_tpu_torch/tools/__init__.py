@@ -2,8 +2,16 @@
 
 - ``python -m flacenc_tpu_torch.tools.profile``: a `torch.profiler` trace
   of one full encode;
-- ``python -m flacenc_tpu_torch.tools.microbench``: per-stage times of one
-  `BatchEncoder` forward and the Rice kernel against its plain version;
+- ``python -m flacenc_tpu_torch.tools.bench``: the headline measurement
+  (the JAX package's ``bench.py`` worker): timed encode trials of CD stereo
+  at batch 256, their median, the host ceiling, the device step and the
+  same-corpus strict bits, as JSON result lines;
+- ``python -m flacenc_tpu_torch.tools.hwconfigs``: x-realtime and
+  bits/sample of the five ``BASELINE.json`` configs as one markdown table;
+- ``python -m flacenc_tpu_torch.tools.microbench``: per-stage and per-op
+  times of one `BatchEncoder` forward, the host packer and MD5 rates, the
+  Rice kernel against its plain version, and with ``--kernel-sweep`` the
+  two over batch x block;
 - ``python -m flacenc_tpu_torch.tools.overlap``: where the wall of a
   streamed encode goes, from its stage timeline (``FLACENC_TIMELINE=1``);
 - ``python -m flacenc_tpu_torch.tools.reporter``: compression rate and
@@ -15,7 +23,21 @@ All run on ``cuda`` unless given ``--cpu-only``.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"),
+    or "cpu" for the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[device.index or 0].strip()
 
 
 def make_audio(seconds: float, rate: int = 44100) -> np.ndarray:

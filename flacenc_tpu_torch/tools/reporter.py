@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -103,14 +102,11 @@ def backend_line(device) -> str:
     """The report's backend: the card's name and power limit, or the CPU."""
     import torch
 
+    from . import card_line
+
     if device.type != "cuda":
         return "Backend: `cpu`."
-    limit = subprocess.run(
-        ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[device.index or 0].strip()
-    return (f"Backend: `cuda`, {torch.cuda.get_device_name(device)}, power limit {limit} "
-            f"({torch.cuda.device_count()} device(s)).")
+    return f"Backend: `cuda`, {card_line(device)} ({torch.cuda.device_count()} device(s))."
 
 
 def measure(corpus: dict, device, rate: int = 44100) -> list:

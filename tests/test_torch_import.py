@@ -123,6 +123,21 @@ write_wav("a.wav", np.arange(-5000, 5000, dtype=np.int32), 2, 16, 44100)
 assert corpus_encode.main(["a.wav"], "out", device="cpu").max_inflight_batches == 1
 """
 
+_MEASURE_PROBE = """
+import os
+import torch
+os.environ.update(BENCH_SECONDS="1", BENCH_WARM_SECONDS="0.5", BENCH_TRIALS="1",
+                  BENCH_BATCH="4", BENCH_TRIAL_GAP_S="0", FLACENC_PACK_THREADS="1")
+torch.set_num_threads(1)  # it runs beside other test workers
+from flacenc_tpu_torch.tools import bench, hwconfigs, microbench
+assert bench.main(["--cpu-only"]) == 0
+assert hwconfigs.main(["--cpu-only", "--seconds", "0.5", "--out", "m.md",
+                       "--skip", "fixed-only,default,hi-res,experimental,corpus"]) == 0
+assert microbench.main(["--cpu-only", "--batch", "2", "--block", "256", "--reps", "1"]) == 0
+microbench.SWEEP_BLOCKS, microbench.SWEEP_BATCHES = (256,), (2,)
+assert microbench.main(["--cpu-only", "--kernel-sweep", "--reps", "1"]) == 0
+"""
+
 # printed last by every probe: the modules of JAX or the JAX package loaded
 _REPORT = """
 import sys
@@ -162,6 +177,10 @@ def test_fuzz_tiers_tools_and_examples_leave_jax_out(tmp_path):
     _run_probe(_TOOLS_PROBE, tmp_path)
 
 
+def test_measurement_tools_leave_jax_out(tmp_path):
+    _run_probe(_MEASURE_PROBE, tmp_path)
+
+
 def test_no_jax_import_in_sources():
     """Neither jax nor the JAX package is imported by any source of the
     package, by chip_smoke.py or by the card-only tests."""
@@ -171,7 +190,8 @@ def test_no_jax_import_in_sources():
     assert len(paths) > 30
     for new in (("ops", "upack.py"), ("fuzz.py",), ("tools", "overlap.py"),
                 ("tools", "reporter.py"), ("examples", "encode_library.py"),
-                ("examples", "corpus_encode.py")):
+                ("examples", "corpus_encode.py"), ("tools", "bench.py"),
+                ("tools", "hwconfigs.py"), ("tools", "microbench.py")):
         assert os.path.join(PKG, *new) in paths
     forbidden = re.compile(r"^\s*(import jax|from jax|(from|import) flacenc_tpu(\.|\s|$))", re.M)
     for path in paths:
