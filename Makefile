@@ -2,7 +2,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast fuzz bench microbench report native lint codehealth
+.PHONY: test test-fast test-torch smoke fuzz bench microbench report native lint codehealth
 
 native:
 	$(PY) flacenc_tpu/native/build.py --force
@@ -13,6 +13,14 @@ test:
 test-fast:
 	$(PY) -m pytest tests/ -x -q --ignore=tests/test_device.py \
 		--ignore=tests/test_experimental.py
+
+# the PyTorch port's tests on the CPU (card-only tests skip)
+test-torch:
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/_native_guard tests/test_torch_*.py -q
+
+# the port on one CUDA card: builds the kernels, drives every path
+smoke:
+	python3 chip_smoke.py
 
 fuzz:
 	$(PY) fuzz/run_fuzz.py --iters 200
@@ -32,6 +40,7 @@ report:
 	$(PY) tools/reporter.py -o report/report.md
 
 lint:
-	$(PY) -m compileall -q flacenc_tpu tools fuzz bench.py __graft_entry__.py
+	$(PY) -m compileall -q flacenc_tpu tools fuzz bench.py __graft_entry__.py \
+		flacenc_tpu_torch chip_smoke.py
 
 codehealth: lint test fuzz

@@ -36,6 +36,10 @@ the card, each at a size users run:
 - the pipeline's depth: the main path's 240 s at depth 8 (the default,
   FLACENC_PIPELINE_DEPTH) and at depth 2 with equal bytes, each run's wall
   split by ``tools.overlap.analyze``;
+- the issue path: the runner's dispatch lane (the default) against
+  FLACENC_INLINE_DISPATCH=1 in turns (lane, inline, inline, lane) on the
+  main path's 240 s at depth 8, 60 s strict and FLACENC_FETCH_GROUP=4,
+  equal bytes within each, each run's x-realtime, submit_s and split;
 - the rice and mid/side wires over a mesh of two replicas, equal to
   `mesh=None`;
 - the corpus over two processes on cuda:0 joined by a gloo group, each
@@ -47,7 +51,8 @@ the card, each at a size users run:
   example's files equal to the corpus phase's streams;
 - the measurement programs: ``tools.bench`` (60 s, 3 trials 1 s apart,
   batch 256, the strict same-corpus encode and the device step; its best
-  stream decoded), ``tools.hwconfigs`` (the five BASELINE configs at 30 s,
+  stream decoded; four times, the issue on the dispatch lane and inline in
+  turns), ``tools.hwconfigs`` (the five BASELINE configs at 30 s,
   1 s gaps, every row without an error) and ``tools.microbench`` at
   --reps 10 with its kernel sweep (the kernel equal to its plain version on
   all 9 shapes), each printing its JSON lines.
@@ -977,6 +982,92 @@ def depth_phase(phases: Phases, x) -> dict:
     return out
 
 
+DISPATCH_TURNS = ("lane", "inline", "inline", "lane")
+
+
+def dispatch_phase(phases: Phases) -> dict:
+    """p. The runner's dispatch lane (the default issue path) against
+    FLACENC_INLINE_DISPATCH=1 (the caller's thread), in turns (lane,
+    inline, inline, lane), with the stage timeline on: the main path's
+    240 s at depth 8, then 60 s strict, then FLACENC_FETCH_GROUP=4 on 60 s
+    CD, each after one warm-up encode on the lane (so that the first turn
+    does not pay the captures of keys met for the first time alone).
+    Within each the four streams' bytes are equal, each decoded by both
+    decoders with its MD5 checked and its Rice launches counted
+    (`Phases.stream`); each run's x-realtime, submit_s and
+    `tools.overlap.analyze` split (with the issue span) are printed."""
+    from flacenc_tpu_torch import constants
+    from flacenc_tpu_torch.tools import overlap
+
+    default = default_config()
+    cases = (("main path", cd_audio(240, seed=0), None, None),
+             ("strict", cd_audio(60, seed=16), True, None),
+             ("G=4", cd_audio(60, seed=36), None, "4"))
+    saved = constants.par.FRAMEBUF_MULTIPLICITY
+    constants.par.FRAMEBUF_MULTIPLICITY = 8
+    os.environ["FLACENC_TIMELINE"] = "1"
+    out = {}
+    try:
+        for case, x, strict, group in cases:
+            audio_s = len(x) / 2 / 44100
+            runs, data = [], set()
+            with timed(f"p (lane vs inline, {case}, {audio_s:.0f} s)"):
+                if group:
+                    os.environ["FLACENC_FETCH_GROUP"] = group
+                try:
+                    data.add(encode_bytes(phases.dev, default, x, 2, 16, 44100, strict_lpc=strict,
+                                          upload_pack=False if group else "env"))
+                finally:
+                    os.environ.pop("FLACENC_FETCH_GROUP", None)
+                for i, turn in enumerate(DISPATCH_TURNS):
+                    if turn == "inline":
+                        os.environ["FLACENC_INLINE_DISPATCH"] = "1"
+                    if group:
+                        os.environ["FLACENC_FETCH_GROUP"] = group
+                    stats = {}
+                    try:
+                        data.add(phases.stream(
+                            f"dispatch {case} {turn} {i}", default, x, 2, 16, 44100,
+                            strict=strict, upload_pack=False if group else "env",
+                            stats=stats))
+                    finally:
+                        os.environ.pop("FLACENC_INLINE_DISPATCH", None)
+                        os.environ.pop("FLACENC_FETCH_GROUP", None)
+                    if group and stats["grouped_batches"] != stats["batches"]:
+                        raise AssertionError(f"p {case} {turn}: {stats['grouped_batches']} of "
+                                             f"{stats['batches']} batches in groups")
+                    run = {
+                        "turn": turn, "x_realtime": audio_s / stats["wall_s"],
+                        "wall_s": stats["wall_s"], "batches": stats["batches"],
+                        "submit_s": stats["submit_s"],
+                        "submit_ms_per_batch": 1e3 * stats["submit_s"] / stats["batches"],
+                        "device_wait_s": stats["device_wait_s"], "read_s": stats["read_s"],
+                        "pack_s": stats["pack_s"], "wire_batches": stats["wire_batches"],
+                        "grouped_batches": stats["grouped_batches"],
+                        "captures": stats["captures"], "capture_s": stats["capture_s"],
+                        "overlap": overlap.analyze(stats["timeline"], stats["wall_s"]),
+                    }
+                    run["issue_ms_per_batch"] = 1e3 * run["overlap"]["issue_s"] / stats["batches"]
+                    runs.append(run)
+                    print(f"dispatch {case} {turn} ({i}): " + json.dumps(run)
+                          + f" ({phases.card})")
+            if len(data) != 1:
+                raise AssertionError(f"p {case}: the lane and the inline issue (or the "
+                                     "warm-up) give different bytes")
+            out[case] = runs
+            xs = {t: [r["x_realtime"] for r in runs if r["turn"] == t] for t in ("lane", "inline")}
+            sub = {t: [r["submit_ms_per_batch"] for r in runs if r["turn"] == t]
+                   for t in ("lane", "inline")}
+            print(f"dispatch {case}: bytes equal in all four turns and the warm-up; x-realtime "
+                  f"lane {xs['lane']} "
+                  f"inline {xs['inline']}; submit ms a batch lane {sub['lane']} inline "
+                  f"{sub['inline']} ({phases.card})")
+    finally:
+        constants.par.FRAMEBUF_MULTIPLICITY = saved
+        del os.environ["FLACENC_TIMELINE"]
+    return out
+
+
 def mesh_wire_phase(phases: Phases) -> None:
     """k. The rice and mid/side wires forced over a mesh of two replicas on
     the card (30 s CD stereo each): bytes equal `mesh=None`'s, every batch
@@ -1291,9 +1382,11 @@ def captured(main, argv) -> tuple:
 
 def measurement_phase(phases: Phases) -> None:
     """o. The port's measurement programs on the card: the bench at 60 s,
-    3 trials 1 s apart, batch 256 (its best trial's stream decoded by both
-    decoders with its MD5 checked; 2 Rice runs for every forward of the whole
-    run, the device step's included); the five-config matrix at 30 s with 1 s
+    3 trials 1 s apart, batch 256, four times in turns with the issue on the
+    dispatch lane and under FLACENC_INLINE_DISPATCH=1 (lane, inline,
+    inline, lane; equal bytes, decoded by both decoders with the MD5
+    checked; 2 Rice runs for every forward of each run, the device step's
+    included); the five-config matrix at 30 s with 1 s
     gaps (every row without an error; 1 or 2 Rice runs a forward); the
     microbenchmark at --reps 10 and its kernel sweep (the kernel equal to its
     plain version on all 9 shapes)."""
@@ -1302,30 +1395,44 @@ def measurement_phase(phases: Phases) -> None:
     env = {"BENCH_SECONDS": "60", "BENCH_WARM_SECONDS": "20", "BENCH_TRIALS": "3",
            "BENCH_TRIAL_GAP_S": "1", "BENCH_BATCH": "256"}
     saved = {key: os.environ.get(key) for key in env}
-    with timed("o (bench: 60 s, 3 trials, batch 256)"):
-        os.environ.update(env)
-        try:
-            counts = Counts()
-            extra, data = bench.main_worker(phases.dev)
-            launches, forwards = counts.read()
-        finally:
-            for key, value in saved.items():
-                if value is None:
-                    del os.environ[key]
-                else:
-                    os.environ[key] = value
-        check_launches("bench", launches, forwards, rice_per_forward(default_config(), 4096),
-                       extra["batches"])
-        audio = make_audio(60)
-        check_lossless(data, audio, 2, "bench")
-        if extra["card"] != phases.card or extra["device_step_batch"] != 256:
-            raise AssertionError(f"bench: {extra}")
-        if extra["bits_per_sample"] != round(len(data) * 8 / len(audio), 4):
-            raise AssertionError("bench: bits_per_sample is not its stream's")
-        phases.launches["bench"] = launches
-        print(f"bench: best trial decoded by both decoders, MD5 matches, launches {launches} == "
-              f"2 x {forwards} forwards; trials {extra['trials_x_realtime']}, device step "
-              f"{extra['device_step_ms_per_batch']} ms at batch 256 ({phases.card})")
+    audio, data_by_turn, turns = make_audio(60), set(), []
+    for i, turn in enumerate(DISPATCH_TURNS):
+        with timed(f"o (bench: 60 s, 3 trials, batch 256, {turn} issue)"):
+            os.environ.update(env)
+            if turn == "inline":
+                os.environ["FLACENC_INLINE_DISPATCH"] = "1"
+            try:
+                counts = Counts()
+                extra, data = bench.main_worker(phases.dev)
+                launches, forwards = counts.read()
+            finally:
+                os.environ.pop("FLACENC_INLINE_DISPATCH", None)
+                for key, value in saved.items():
+                    if value is None:
+                        del os.environ[key]
+                    else:
+                        os.environ[key] = value
+            check_launches(f"bench ({turn})", launches, forwards,
+                           rice_per_forward(default_config(), 4096), extra["batches"])
+            if data not in data_by_turn:
+                check_lossless(data, audio, 2, f"bench ({turn})")
+            data_by_turn.add(data)
+            if extra["card"] != phases.card or extra["device_step_batch"] != 256:
+                raise AssertionError(f"bench: {extra}")
+            if extra["bits_per_sample"] != round(len(data) * 8 / len(audio), 4):
+                raise AssertionError("bench: bits_per_sample is not its stream's")
+            phases.launches.setdefault("bench", launches)
+            turns.append({"turn": turn, **{k: extra[k] for k in (
+                "trials_x_realtime", "median_x_realtime", "wall_s", "read_md5_s", "submit_s",
+                "host_pack_s", "device_wait_s", "batches", "device_step_ms_per_batch")}})
+            print(f"bench ({turn} issue, turn {i}): best trial decoded by both decoders, MD5 "
+                  f"matches, launches {launches} == 2 x {forwards} forwards; "
+                  + json.dumps(turns[-1]) + f" ({phases.card})")
+    if len(data_by_turn) != 1:
+        raise AssertionError("bench: the lane and the inline issue give different bytes")
+    print("bench: equal bytes in all four turns; median x-realtime "
+          + ", ".join(f"{t['turn']} {t['median_x_realtime']}" for t in turns)
+          + f" ({phases.card})")
 
     with tempfile.TemporaryDirectory() as workdir, timed("o (hwconfigs --seconds 30 --gap 1)"):
         table = os.path.join(workdir, "hwconfigs.md")
@@ -1392,6 +1499,8 @@ def run_paths(phases: Phases, cli_args=()) -> None:
           f"{stats['captures']}")
     # the same audio at depth 8 and at depth 2, the stage timeline on
     depth_phase(phases, cd_audio(240, seed=0))
+    # the dispatch lane against the inline issue, in turns
+    dispatch_phase(phases)
 
     # 5. against the numpy oracle: 8 full blocks plus a ragged tail
     oracle_equal(dev, "sigen stereo clip", default, sigen_clip(8 * 4096 + 1234), 2, 4096)

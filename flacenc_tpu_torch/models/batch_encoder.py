@@ -14,9 +14,10 @@ The forward can also take a packed upload wire (``ops/upack.py``) in place
 of the blocks, and G stacked batches at once (grouped round trips).
 
 Host half: `BatchRunner` picks each batch's upload wire (the racer
-`LinkEstimator`, or a fixed mode), uploads it (with the strict host arrays
-of `_strict_ext_arrays` in strict mode), runs the registry's program for
-it (`program_for`: on a card a captured CUDA graph, replayed), on one
+`LinkEstimator`, or a fixed mode) and, on its dispatch lane, uploads it
+(with the strict host arrays of `_strict_ext_arrays` in strict mode) and
+runs the registry's program for it (`program_for`: on a card a captured
+CUDA graph, replayed), on one
 device or split over a `parallel.mesh` of replicas, and packs the frames
 with one of three packers: "native2" (the default) hands the decisions to the C++
 packer (``native.pack_frames_recompute``), which rebuilds each residual
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import functools
 import os
@@ -1037,6 +1039,15 @@ _GRAPH_POOLS: dict = {}
 # batch forwards run by the programs (a grouped call runs G; a capture runs
 # its warm-up's and its first replay's): what launch counts are held to
 PROGRAM_COUNTS = {"forwards": 0}
+# the registry, the pools and the counts are shared by every runner's
+# dispatch lane in the process
+_REGISTRY_LOCK = threading.Lock()
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count_forwards(n: int) -> None:
+    with _COUNTS_LOCK:
+        PROGRAM_COUNTS["forwards"] += n
 
 
 def _outputs_equal(a, b) -> bool:
@@ -1046,10 +1057,24 @@ def _outputs_equal(a, b) -> bool:
 
 
 def _graph_pool(dev: torch.device, replica: tuple):
-    pool = _GRAPH_POOLS.get((dev, replica))
-    if pool is None:
-        pool = _GRAPH_POOLS[(dev, replica)] = torch.cuda.graph_pool_handle()
+    with _REGISTRY_LOCK:
+        pool = _GRAPH_POOLS.get((dev, replica))
+        if pool is None:
+            pool = _GRAPH_POOLS[(dev, replica)] = torch.cuda.graph_pool_handle()
     return pool
+
+
+def _on_card(dev: torch.device):
+    """The per-thread CUDA state an issue needs, set on whichever thread
+    runs it: `dev` current and its default stream current on it. Every
+    replay, upload, download and event of a card goes on that one stream,
+    whichever thread issues it, so a download enqueued before the next
+    replay also runs before it. A no-op for the CPU."""
+    stack = contextlib.ExitStack()
+    if dev.type == "cuda":
+        stack.enter_context(torch.cuda.device(dev))
+        stack.enter_context(torch.cuda.stream(torch.cuda.default_stream(dev)))
+    return stack
 
 
 class Program:
@@ -1064,7 +1089,15 @@ class Program:
     (`checked`); any failure raises. Later calls copy their inputs into the
     static buffers and replay: a replay overwrites the static outputs, so
     the caller enqueues its download of them before the next replay from
-    the same pool. Without `capture` a call runs the module eagerly."""
+    the same pool, holding `lock` from the call to the download's event
+    (a registry program is shared by every runner in the process). Without
+    `capture` a call runs the module eagerly.
+
+    Calls run on the device's default stream (`_on_card`), on a runner's
+    dispatch lane. The capture synchronizes the device before it begins,
+    which stalls only the lane that met the key, once per key; it captures
+    in "thread_local" error mode, so other threads may pin host memory and
+    wait on events while it runs."""
 
     def __init__(self, key: tuple, module: nn.Module, device: torch.device, capture: bool,
                  replica: tuple = ()):
@@ -1079,17 +1112,19 @@ class Program:
         self.batches = max(1, module.grouped)  # batch forwards one call runs
         self.checked: Optional[bool] = None  # replay == eager on the first call
         self.capture_s = 0.0     # wall seconds of the first call (warm-up, capture, check)
+        self.lock = threading.Lock()  # held from a call to its outputs' download event
 
     def __call__(self, *inputs: torch.Tensor):
-        if not self.capture:
-            PROGRAM_COUNTS["forwards"] += self.batches
-            return self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
-        if self.graph is None:
-            return self._capture(inputs)
-        for static, x in zip(self.static_in, inputs):
-            static.copy_(x, non_blocking=True)
-        self.graph.replay()
-        PROGRAM_COUNTS["forwards"] += self.batches
+        with _on_card(self.device):
+            if not self.capture:
+                _count_forwards(self.batches)
+                return self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
+            if self.graph is None:
+                return self._capture(inputs)
+            for static, x in zip(self.static_in, inputs):
+                static.copy_(x, non_blocking=True)
+            self.graph.replay()
+        _count_forwards(self.batches)
         return self.static_out
 
     def _capture(self, inputs):
@@ -1112,14 +1147,15 @@ class Program:
             # and the cache they empty is what the next forward allocates from
             torch.cuda.synchronize(dev)
             with torch.cuda.stream(side):
-                graph.capture_begin(pool=_graph_pool(dev, self.replica))
+                graph.capture_begin(pool=_graph_pool(dev, self.replica),
+                                    capture_error_mode="thread_local")
                 try:
                     out = self.module(*self.static_in)
                 finally:
                     graph.capture_end()
             main.wait_stream(side)
             graph.replay()
-            PROGRAM_COUNTS["forwards"] += 2 * self.batches  # the warm-up's and the replay's
+            _count_forwards(2 * self.batches)  # the warm-up's and the replay's
             self.checked = _outputs_equal(out, eager)
             if not self.checked:
                 raise RuntimeError(f"the CUDA graph of {self.key[5:8]} differs from its eager forward")
@@ -1144,26 +1180,30 @@ def program_for(cfg, nch: int, bps: int, block_size: int, strict_lpc: bool, pack
     """The registry's program for a key (config, C, bps, T, strict, packer,
     wire, input shapes and dtypes, device, replica of a mesh, G), built and
     inserted on a miss, the least recently used of `_PROGRAM_CACHE_SIZE`
-    entries evicted."""
+    entries evicted. Safe to call from several threads."""
     key = (cfg.to_toml(), nch, bps, block_size, strict_lpc, packer, wire, shapes,
            str(device), replica, grouped)
-    prog = _PROGRAMS.get(key)
-    if prog is not None:
-        _PROGRAMS.move_to_end(key)
-        return prog
-    module = BatchEncoder(
-        cfg, nch, bps, block_size, strict_lpc=strict_lpc, packed_wire=wire,
-        wire_encoded=packer != "native2", grouped=grouped,
-    ).to(device)
-    prog = Program(key, module, device, graph_capturable(cfg, strict_lpc, block_size), replica)
-    _PROGRAMS[key] = prog
-    while len(_PROGRAMS) > _PROGRAM_CACHE_SIZE:
-        _PROGRAMS.popitem(last=False)
+    with _REGISTRY_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is not None:
+            _PROGRAMS.move_to_end(key)
+            return prog
+        module = BatchEncoder(
+            cfg, nch, bps, block_size, strict_lpc=strict_lpc, packed_wire=wire,
+            wire_encoded=packer != "native2", grouped=grouped,
+        ).to(device)
+        prog = Program(key, module, device, graph_capturable(cfg, strict_lpc, block_size),
+                       replica)
+        _PROGRAMS[key] = prog
+        while len(_PROGRAMS) > _PROGRAM_CACHE_SIZE:
+            _PROGRAMS.popitem(last=False)
     return prog
 
 
 def _sync_programs(grouped: Optional[bool]) -> None:
-    devices = {p.device for p in list(_PROGRAMS.values())
+    with _REGISTRY_LOCK:
+        progs = list(_PROGRAMS.values())
+    devices = {p.device for p in progs
                if p.device.type == "cuda" and (grouped is None or bool(p.key[-1]) == grouped)}
     for dev in devices:
         torch.cuda.synchronize(dev)
@@ -1171,9 +1211,10 @@ def _sync_programs(grouped: Optional[bool]) -> None:
 
 def wait_wire_warms(timeout: Optional[float] = None) -> None:
     """Return once every per-batch program's capture and warm replay has
-    finished on its card. Captures run inline on the caller's thread, so
-    this only waits for the work already queued; `timeout` is accepted for
-    the JAX package's signature."""
+    finished on its card. A capture runs on the dispatch lane of the runner
+    that met its key, which waits for it before that runner's encode
+    returns, so this only waits for the work already queued; `timeout` is
+    accepted for the JAX package's signature."""
     _sync_programs(False)
 
 
@@ -1200,7 +1241,7 @@ class _Batch:
     of its outputs."""
 
     __slots__ = ("blocks", "nums", "rate", "cookie", "payload", "wire", "kind", "nbytes",
-                 "seq", "outputs", "inputs", "done", "group", "future", "slot")
+                 "seq", "outputs", "inputs", "done", "group", "issue", "future", "slot")
 
     def __init__(self, blocks, nums, rate, cookie, payload, wire, kind, nbytes, seq):
         self.blocks = blocks    # (n, C, T) real (unpadded) blocks
@@ -1216,6 +1257,7 @@ class _Batch:
         self.inputs: list = []  # the uploaded input tensors, kept until the batch drains
         self.done: list = []    # CUDA events recorded after the downloads
         self.group = None       # the grouped round trip it rides, if any
+        self.issue = None       # the dispatch lane's future of its launch (or its group's)
         self.future = None      # the io worker's [(frames, pack_s)] for it
         self.slot = 0           # its index in that result (its place in the group)
 
@@ -1294,23 +1336,35 @@ class BatchRunner:
     measured download wait exceeds `_GROUP_FETCH_MIN_S`.
     No wire and no G changes the bytes.
 
-    `submit` pads a batch to `batch_size` with zero blocks, range-checks it,
-    packs its upload wire, computes the strict host arrays when strict,
-    uploads and launches it (or parks it in the open group), and hands the
-    wait for its downloads and its host pack to one of `max(2, depth)` io
-    workers. It returns the oldest batch's frames once `depth`
-    (``constants.par.FRAMEBUF_MULTIPLICITY``, FLACENC_PIPELINE_DEPTH) are
-    in flight, at least G + 1 while grouping. Uploads, launches and the
-    download enqueues stay on the caller's thread, in its stream order: a
-    graph replay overwrites its static outputs, so a batch's download is
-    enqueued before the next replay. `drain` yields what is still in
-    flight, oldest first; `close` shuts the workers down.
+    `submit` pads a batch to `batch_size` with zero blocks, range-checks it
+    and packs its upload wire on the caller's thread (or parks it in the
+    open group), then hands the rest of its device lifetime to the
+    runner's dispatch lane, one thread taking batches in submit order (the
+    JAX package's io tasks ``_updf_plain``, ``_upload_dispatch_fetch`` and
+    ``_roundtrip_group``): the strict host arrays when strict, the pinned
+    upload, the program call (copy-in and replay, or the eager forward),
+    the download enqueue and its CUDA event, a full group as one task. The
+    lane then hands the wait for the downloads and the host pack to one of
+    `max(2, depth)` io workers. One lane keeps the stream order a graph
+    replay needs (it overwrites its static outputs, so a batch's download
+    is enqueued before the next replay), and each `Program`'s lock keeps it
+    across runners. FLACENC_INLINE_DISPATCH (read at each launch; any
+    non-empty value) issues on the caller's thread instead, the JAX
+    package's kill switch. `submit` returns the oldest batch's frames once
+    `depth` (``constants.par.FRAMEBUF_MULTIPLICITY``,
+    FLACENC_PIPELINE_DEPTH) are in flight, at least G + 1 while grouping.
+    An exception on the lane or a worker comes out of `submit` or `drain`
+    as itself when its batch drains; nothing is retried. `drain` yields
+    what is still in flight, oldest first; `close` shuts the lane, then
+    the workers down.
 
-    `stats` holds wall-clock totals: submit_s (pad, range check, wire pack,
-    strict arrays, upload, launch), device_wait_s (the caller blocked on a
-    worker's result), pack_s (the workers' assembly seconds), batches and
-    max_inflight; FLACENC_TIMELINE=1 also keeps (event, batch,
-    perf_counter, ...) tuples in `timeline`, from every thread."""
+    `stats` holds wall-clock totals: submit_s (the caller's pad, range
+    check and wire pack; under FLACENC_INLINE_DISPATCH also the strict
+    arrays, upload and launch), device_wait_s (the caller blocked on the
+    lane's issue and a worker's result), pack_s (the workers' assembly
+    seconds), batches and max_inflight; FLACENC_TIMELINE=1 also keeps
+    (event, batch, perf_counter, ...) tuples in `timeline`, from every
+    thread."""
 
     def __init__(self, cfg, nch: int, bps: int, block_size: int, batch_size: int,
                  device: str | torch.device = "cuda", strict_lpc: bool = False,
@@ -1333,6 +1387,9 @@ class BatchRunner:
         self.depth = constants.par.FRAMEBUF_MULTIPLICITY
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(2, self.depth), thread_name_prefix="flacenc-io")
+        self._lane = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="flacenc-lane")
+        self._lane_tail: Optional[concurrent.futures.Future] = None  # the last lane task
         self._programs: dict = {}  # (wire, shapes, G) -> Program, or a mesh's ShardedEncoder of them
         self._init_upload(upload_pack)
         self._est = _link_est_for(_shape_bucket(batch_size * nch * block_size))
@@ -1353,7 +1410,8 @@ class BatchRunner:
         self._group_open: List[_Batch] = []
         self.grouped_batches = 0
         self.captures = 0  # programs this runner captured (0 when all were cached)
-        self.capture_s = 0.0  # wall seconds those captures took, inside submit_s
+        self.capture_s = 0.0  # wall seconds those captures took, on the issuing thread
+        self._report_lock = threading.Lock()  # captures: written by the lane, read by report
         self.timeline: Optional[list] = [] if os.environ.get("FLACENC_TIMELINE") else None
         # stamp and append under one lock, so that the list is in time order
         # across the caller's thread and the io workers
@@ -1504,20 +1562,25 @@ class BatchRunner:
     def _run(self, wire, arrays, grouped: int = 0):
         """Upload `arrays` (pinned on a card), run the program (over a mesh
         each replica on its shard) and enqueue every output's download into
-        its rows of one host buffer, behind one CUDA event per card.
+        its rows of one host buffer, behind one CUDA event per card. It
+        sets the thread's inference mode, device and stream itself, and
+        holds every program's lock from its call to the event's record.
         Returns (host outputs, events, uploaded inputs)."""
         inputs = [torch.from_numpy(np.ascontiguousarray(
             a.view(np.int32) if a.dtype == np.uint32 else a)) for a in arrays]
-        with torch.inference_mode():
+        with torch.inference_mode(), _on_card(self.dev), contextlib.ExitStack() as held:
             if self.on_cuda:
                 inputs = [x.pin_memory() for x in inputs]
             prog = self._program(wire, inputs, grouped)
             sharded = isinstance(prog, pmesh.ShardedEncoder)
-            fresh = [p for p in (prog.replicas if sharded else [prog])
-                     if p.capture and p.graph is None]
+            progs = prog.replicas if sharded else [prog]
+            for p in progs:  # in mesh order, so two runners never hold them crosswise
+                held.enter_context(p.lock)
+            fresh = [p for p in progs if p.capture and p.graph is None]
             shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
-            self.captures += len(fresh)
-            self.capture_s += sum(p.capture_s for p in fresh)
+            with self._report_lock:
+                self.captures += len(fresh)
+                self.capture_s += sum(p.capture_s for p in fresh)
             outs = [(sl, (out,) if isinstance(out, torch.Tensor) else tuple(out))
                     for sl, out in shards]
             rows = inputs[0].shape[0]
@@ -1527,18 +1590,37 @@ class BatchRunner:
             ]
             done = {}
             for sl, out in outs:
-                for h, o in zip(host, out):
-                    h[sl].copy_(o, non_blocking=self.on_cuda)
                 dev = out[0].device
-                if dev.type == "cuda":
-                    done[dev] = torch.cuda.Event()
-                    done[dev].record(torch.cuda.current_stream(dev))
+                with _on_card(dev):
+                    for h, o in zip(host, out):
+                        h[sl].copy_(o, non_blocking=self.on_cuda)
+                    if dev.type == "cuda":
+                        done[dev] = torch.cuda.Event()
+                        done[dev].record(torch.cuda.default_stream(dev))
         return host, list(done.values()), inputs
+
+    def _issue(self, task, *args) -> concurrent.futures.Future:
+        """Run `task` (a batch's launch or a group's round trip) on the
+        dispatch lane, after every task submitted before it. Under
+        FLACENC_INLINE_DISPATCH it runs here, on the caller's thread, once
+        the lane has finished what it holds, and the future returned is
+        already done."""
+        if not os.environ.get("FLACENC_INLINE_DISPATCH"):
+            self._lane_tail = self._lane.submit(task, *args)
+            return self._lane_tail
+        if self._lane_tail is not None:  # switched on mid-stream: keep the launch order
+            self._lane_tail.result()
+            self._lane_tail = None
+        task(*args)
+        done: concurrent.futures.Future = concurrent.futures.Future()
+        done.set_result(None)
+        return done
 
     def _launch(self, batch: _Batch) -> None:
         """Upload and run one batch, enqueue its downloads, and hand the
-        wait and the pack to a worker. The strict host arrays are computed
-        here, before the upload they ride in."""
+        wait and the pack to a worker (the JAX package's ``_updf_plain``
+        and, when strict, ``_upload_dispatch_fetch``). The strict host
+        arrays are computed here, before the upload they ride in."""
         arrays = batch.payload
         if self.strict_window is not None:
             chunk = _bucket_pad(batch.blocks, self.batch_size)
@@ -1600,30 +1682,38 @@ class BatchRunner:
         return g
 
     def _flush_group(self) -> None:
-        """Launch the open group: a full one as one stacked upload, one
-        grouped forward and one (G, B, F) download, waited for and packed by
-        one worker; a partial one (stream end, a wire or shape change) batch
-        by batch with the per-batch program."""
+        """Hand the open group to the dispatch lane as one task
+        (`_roundtrip_group`)."""
         entries, self._group_open = self._group_open, []
         if not entries:
             return
         self.grouped_batches += len(entries)
         group = {"entries": len(entries), "left": len(entries), "waited": False,
                  "nbytes": sum(e.nbytes for e in entries)}
+        for e in entries:
+            e.group = group
+        issue = self._issue(self._roundtrip_group, entries)
+        for e in entries:
+            e.issue = issue
+
+    def _roundtrip_group(self, entries: List[_Batch]) -> None:
+        """Dispatch lane: launch a group. A full one is one stacked upload,
+        one grouped forward and one (G, B, F) download, waited for and
+        packed by one worker; a partial one (stream end, a wire or shape
+        change) goes batch by batch with the per-batch program."""
         self._mark("gtrip_start", entries[0].seq, len(entries))
         if len(entries) == (self.fetch_group or _FETCH_GROUP_AUTO):
             stacked = [np.stack([e.payload[i] for e in entries])
                        for i in range(len(entries[0].payload))]
             (host,), done, inputs = self._run(entries[0].wire, stacked, grouped=len(entries))
             for g, e in enumerate(entries):
-                e.outputs, e.done, e.inputs, e.group, e.slot = (host[g],), done, inputs, group, g
+                e.outputs, e.done, e.inputs, e.slot = (host[g],), done, inputs, g
             future = self._pool.submit(self._fetch_assemble, entries)
             for e in entries:
                 e.future = future
         else:
             for e in entries:
                 self._launch(e)
-                e.group = group
         self._mark("gissued", entries[0].seq, len(entries))
 
     # -- submit and drain ---------------------------------------------------
@@ -1659,7 +1749,7 @@ class BatchRunner:
             if len(self._group_open) >= g:
                 self._flush_group()
         else:
-            self._launch(batch)
+            batch.issue = self._issue(self._launch, batch)
         self._inflight.append(batch)
         self.stats["max_inflight"] = max(self.stats["max_inflight"], len(self._inflight))
         self.stats["submit_s"] += time.perf_counter() - t0
@@ -1668,24 +1758,30 @@ class BatchRunner:
         return None
 
     def _drain_one(self) -> BatchResult:
-        """The oldest batch's frames, from its worker's result."""
+        """The oldest batch's frames: the lane's issue, then its worker's
+        result."""
         saturated = len(self._inflight) >= 2
         batch = self._inflight.pop(0)
-        if batch.outputs is None:  # parked in the open group: ship it now
+        if batch.issue is None and batch.outputs is None:  # parked in the open group
             self._flush_group()
-        if batch.future is None:  # handed in launched, without a worker
-            batch.future = self._pool.submit(self._fetch_assemble, [batch])
         self._mark("drain_start", batch.seq)
         t0 = time.perf_counter()
+        if batch.issue is not None:
+            batch.issue.result()
+        t_issued = time.perf_counter()
+        if batch.future is None:  # handed in launched, without a worker
+            batch.future = self._pool.submit(self._fetch_assemble, [batch])
         packed = batch.future.result()
         t1 = time.perf_counter()
         frames, pack_s = packed[batch.slot]
         group = batch.group
         if group is None or not group["waited"]:
             # download-wait EWMA: how long this thread waited for the
-            # downloads, the worker's pack seconds taken out (a group's wait
-            # is shared by its batches)
-            waited = max(0.0, t1 - t0 - sum(s for _, s in packed))
+            # downloads once the lane had issued the batch, the worker's
+            # pack seconds taken out (a group's wait is shared by its
+            # batches); the lane's strict arrays and eager forwards are no
+            # link
+            waited = max(0.0, t1 - t_issued - sum(s for _, s in packed))
             share = waited if group is None else waited / group["entries"]
             prev = self._fetch_ewma
             self._fetch_ewma = share if prev is None else 0.7 * prev + 0.3 * share
@@ -1697,7 +1793,7 @@ class BatchRunner:
         self.stats["device_wait_s"] += t1 - t0
         self.stats["pack_s"] += pack_s
         self.stats["batches"] += 1
-        batch.inputs = batch.outputs = batch.future = None
+        batch.inputs = batch.outputs = batch.issue = batch.future = None
         self._mark("drain_done", batch.seq)
         return BatchResult(frames, batch.cookie)
 
@@ -1727,17 +1823,21 @@ class BatchRunner:
             yield self._drain_one()
 
     def close(self) -> None:
-        """Shut the io workers down: work not started is cancelled, a
-        running wait or pack is finished, and every worker thread is joined."""
+        """Shut the dispatch lane, then the io workers down (a running
+        launch may still hand its batch to a worker): work not started is
+        cancelled, running work is finished, and every thread is joined."""
+        self._lane.shutdown(wait=True, cancel_futures=True)
         self._pool.shutdown(wait=True, cancel_futures=True)
 
     def report(self) -> dict:
         """The runner's wire, group and program counts, for `stats`."""
+        with self._report_lock:
+            captures, capture_s = self.captures, self.capture_s
         out = {
             "wire_batches": {repr(k): v for k, v in self.wire_counts.items()},
             "grouped_batches": self.grouped_batches,
-            "captures": self.captures,
-            "capture_s": self.capture_s,
+            "captures": captures,
+            "capture_s": capture_s,
             "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
         }
         if self.timeline is not None:
@@ -1792,9 +1892,11 @@ def encode_with_fixed_block_size(
     `BatchRunner`). The wire and G never change the bytes.
 
     `stats`: optional dict filled in place with wall-clock totals: read_s,
-    submit_s (pad, range check, wire pack, strict arrays, upload, launch),
-    device_wait_s (the caller's thread blocked on a batch's downloads and
-    pack, run by an io worker), pack_s (the workers' pack seconds), batches,
+    submit_s (pad, range check, wire pack; the strict arrays, upload and
+    launch run on the runner's dispatch lane, or here too under
+    FLACENC_INLINE_DISPATCH), device_wait_s (the caller's thread blocked on
+    a batch's issue, downloads and pack, run by the lane and an io worker),
+    pack_s (the workers' pack seconds), batches,
     max_inflight (at most FLACENC_PIPELINE_DEPTH), frames and wall_s; and
     the runner's wire_batches (batches per upload wire), grouped_batches,
     captures (CUDA graphs this encode captured) and link_mbps, plus

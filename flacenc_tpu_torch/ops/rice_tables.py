@@ -28,6 +28,7 @@ to 0.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,6 +44,7 @@ STEPS_PER_BLOCK = 16  # 32-sample steps a transpose block aims for: 4 per warp
 
 _lib: Optional[ctypes.CDLL] = None
 _RUNS: dict = {}  # CUDA device -> (1,) int64 tensor the kernels add one to per run
+_RUNS_LOCK = threading.Lock()  # runners' dispatch lanes may meet a card at once
 
 
 def encode_signbit(v: torch.Tensor) -> torch.Tensor:
@@ -113,7 +115,8 @@ def _load() -> ctypes.CDLL:
 
 
 def _runs_counter(dev: torch.device) -> torch.Tensor:
-    """The run counter on `dev`, made (outside any capture) on first use."""
+    """The run counter on `dev`, made (outside any capture) on first use,
+    by whichever thread gets there first."""
     runs = _RUNS.get(dev)
     if runs is None:
         if torch.cuda.is_current_stream_capturing():
@@ -121,19 +124,27 @@ def _runs_counter(dev: torch.device) -> torch.Tensor:
                 "rice_cost_tables was first called on this card inside a CUDA graph "
                 "capture: call it once outside the capture first (a warm-up)"
             )
-        with torch.inference_mode(False):  # a normal tensor: resettable outside the mode
-            runs = _RUNS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+        with _RUNS_LOCK:
+            runs = _RUNS.get(dev)
+            if runs is None:
+                with torch.inference_mode(False):  # a normal tensor: resettable outside the mode
+                    runs = _RUNS[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
     return runs
+
+
+def _counters() -> list:
+    with _RUNS_LOCK:
+        return list(_RUNS.values())
 
 
 def launches() -> int:
     """Kernel runs on every card since the last `reset_launches()`, as the
     cards counted them (waits for the work queued before the read)."""
-    return sum(int(runs.item()) for runs in _RUNS.values())
+    return sum(int(runs.item()) for runs in _counters())
 
 
 def reset_launches() -> None:
-    for runs in _RUNS.values():
+    for runs in _counters():
         runs.zero_()
 
 

@@ -65,9 +65,10 @@ class ShardedEncoder:
     `launch` splits every input's batch axis into equal contiguous shards,
     copies shard i to device i (asynchronously from pinned memory) and runs
     replica i on it, for every shard before waiting on any; it returns the
-    per-shard outputs with their batch slices. Calling the object returns
-    what the single-device module returns, in batch order, on the mesh's
-    first device."""
+    per-shard outputs with their batch slices (a `BatchRunner` calls it on
+    its dispatch lane, each replica's lock held). Calling the object
+    returns what the single-device module returns, in batch order, on the
+    mesh's first device."""
 
     def __init__(self, replicas: Sequence, mesh: BlockMesh):
         if len(replicas) != mesh.size:

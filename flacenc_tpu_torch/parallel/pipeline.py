@@ -45,7 +45,7 @@ class PipelineStats:
     frames: int = 0
     batches: int = 0
     read_s: float = 0.0         # time inside the sources' reads
-    submit_s: float = 0.0       # pad, range check, strict arrays, upload, launch
+    submit_s: float = 0.0       # pad, range check, wire pack (the issue: see BatchRunner)
     device_wait_s: float = 0.0  # host blocked on device results
     pack_s: float = 0.0         # host frame assembly (the packer, on the io workers)
     md5_wait_s: float = 0.0     # waiting on the MD5 thread at the end
@@ -55,7 +55,7 @@ class PipelineStats:
     wire_batches: dict = dataclasses.field(default_factory=dict)  # upload wire -> batches
     grouped_batches: int = 0    # batches through grouped round trips
     captures: int = 0           # CUDA graphs this encode captured
-    capture_s: float = 0.0      # wall seconds of those captures (inside submit_s)
+    capture_s: float = 0.0      # wall seconds of those captures, on the dispatch lane
     link_mbps: Optional[float] = None  # the racer's latest upload rate
 
 

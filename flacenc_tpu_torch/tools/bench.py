@@ -128,8 +128,10 @@ def _stage_extras(stats, n_samples, rate):
     return {
         "wall_s": round(wall, 3),
         "read_md5_s": round(stats.get("read_s", 0.0), 3),
-        # submit_s spans pad, range check, wire pack, upload and launch on
-        # the caller's thread (its waits for results are in device_wait_s)
+        # submit_s spans the caller's pad, range check and wire pack (the
+        # upload and launch run on the runner's dispatch lane, on the
+        # caller's thread only under FLACENC_INLINE_DISPATCH; its waits for
+        # results are in device_wait_s)
         "submit_s": round(stats.get("submit_s", 0.0), 3),
         "host_pack_s": round(stats.get("pack_s", 0.0), 3),
         "device_wait_s": round(dev, 3),

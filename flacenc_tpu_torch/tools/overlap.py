@@ -5,14 +5,21 @@ Runs one warm-up encode, then timed encodes with FLACENC_TIMELINE=1, and
 reconstructs from each run's event stamps where the wall went:
 
 - the caller's thread, partitioned: read (read_start -> read_done), submit
-  CPU (submit -> packed: pad, range check and the upload wire's pack),
-  drain-blocked (drain_start -> drain_done: waiting for an io worker's
-  result) and the rest ("other": the upload, the program's launch and the
-  download enqueue, which the port runs on this thread after `packed`,
-  then frame bookkeeping, the tail and loop glue);
-- the io workers' spans, which overlap the above: per-batch fetch walls
-  (fetch_start -> fetch_done: the wait for the downloads) and grouped round
-  trips (gtrip_start -> gasm_done).
+  CPU (submit -> packed: pad, range check and the upload wire's pack; the
+  upload, the program call and the download enqueue run after `packed` on
+  the runner's dispatch lane, which stamps `issued` as the JAX package's
+  io thread does, so the span closes at `packed`), drain-blocked
+  (drain_start -> drain_done: waiting for the lane's issue and an io
+  worker's result) and the rest ("other": frame bookkeeping, the tail and
+  loop glue; under FLACENC_INLINE_DISPATCH also the upload, launch and
+  download enqueue, which then run on this thread);
+- the spans of the other threads, which overlap the above: the issue
+  (`issue_s`, the lane's busy seconds: a batch's runs from `packed`, or
+  from the end of the lane's previous task, to `issued`, a group's from
+  `gtrip_start` to `gissued`; under the kill switch the same spans on the
+  caller's thread, inside "other"), per-batch fetch walls (fetch_start ->
+  fetch_done: the wait for the downloads) and grouped round trips
+  (gtrip_start -> gasm_done).
 
 Prints one JSON line per trial and one with the best trial, and with
 ``--out`` a markdown table:
@@ -49,9 +56,10 @@ def analyze(timeline, wall_s):
         elif name == "submit":
             open_t[("submit", idx)] = t
         elif name == "packed" and ("submit", idx) in open_t:
-            # close at the `packed` mark: what follows it on the caller's
-            # thread (upload, launch) is "other", and `issued` would also
-            # take in the waits of overlapping batches
+            # close at the `packed` mark: the upload and launch follow it on
+            # the dispatch lane, which stamps `issued` (on the caller's
+            # thread only under FLACENC_INLINE_DISPATCH, then in "other"),
+            # and `issued` would also take in the lane's queue
             spans["submit"].append((open_t.pop(("submit", idx)), t))
         elif name == "drain_start":
             open_t["drain"] = t
@@ -98,7 +106,39 @@ def analyze(timeline, wall_s):
         float(np.mean(io["gtrip_walls"])), 4) if io["gtrip_walls"] else None
     sub["n_fetches"] = len(io["fetch_walls"])
     sub["n_group_trips"] = len(io["gtrip_walls"])
+    sub.update(_issue_spans(ev))
     return sub
+
+
+def _issue_spans(ev) -> dict:
+    """The issue's busy seconds from the time-ordered events (see the
+    module docstring): the lane runs one task at a time in submit order, so
+    a launch starts at its batch's `packed` mark or at the end of the
+    lane's previous task, whichever is later; the launches of a partial
+    group lie inside its round trip, so the spans are merged before they
+    are summed."""
+    packed, group, spans = {}, {}, []
+    cursor = None  # where the lane's current task began, or its previous one ended
+    for e in ev:
+        name, idx, t = e[0], e[1], e[2]
+        if name == "packed":
+            packed[idx] = t
+        elif name == "gtrip_start":
+            group[idx] = cursor = t
+        elif name == "issued" and idx in packed:
+            start = packed.pop(idx)
+            spans.append((start if cursor is None else max(start, cursor), t))
+            cursor = t
+        elif name == "gissued" and idx in group:
+            spans.append((group.pop(idx), t))
+            cursor = t
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is not None:
+            a = max(a, end)
+        busy += max(0.0, b - a)
+        end = b if end is None else max(end, b)
+    return {"issue_s": round(busy, 3), "n_issues": len(spans)}
 
 
 def _markdown(args, results) -> str:
@@ -108,17 +148,19 @@ def _markdown(args, results) -> str:
         f"Audio: {args.seconds:.0f} s {args.bps}/{args.rate / 1000:g} stereo, batch "
         f"{args.batch}, fetch group {os.environ.get('FLACENC_FETCH_GROUP')}, device "
         f"{results[0]['device']}. The wall is partitioned into the caller's thread's "
-        "classes; io-worker walls overlap them and are listed for attribution.",
+        "classes; the issue (the dispatch lane's busy seconds) and the io-worker walls "
+        "overlap them and are listed for attribution.",
         "",
-        "| trial | wall s | x-rt | read | submit cpu | drain blocked | other | fetch mean "
-        "| gtrip mean | link MB/s |",
-        "|---|---|---|---|---|---|---|---|---|---|",
+        "| trial | wall s | x-rt | read | submit cpu | drain blocked | other | issue "
+        "| fetch mean | gtrip mean | link MB/s |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for i, r in enumerate(results):
         lines.append(
             f"| {i} | {r['wall_s']} | {r['x_realtime']} | {r['read_s']} | "
             f"{r['submit_cpu_s']} | {r['drain_blocked_s']} | {r['other_s']} | "
-            f"{r['fetch_wall_mean_s']} | {r['gtrip_wall_mean_s']} | {r['link_mbps']} |"
+            f"{r['issue_s']} | {r['fetch_wall_mean_s']} | {r['gtrip_wall_mean_s']} | "
+            f"{r['link_mbps']} |"
         )
     return "\n".join(lines) + "\n"
 

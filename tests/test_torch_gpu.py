@@ -5,6 +5,10 @@ every path (mono, stereo, 24-bit, fixed-only, BitCount, strict, direct MSE
 and IRLS); the captured CUDA graphs of the program registry against their
 eager forwards, and the upload wires and grouped round trips on the card.
 
+The dispatch lane (the runner's default issue path) against
+FLACENC_INLINE_DISPATCH on every wire and G=4, a capture on the lane beside
+other threads' CUDA calls, and two runners sharing one program.
+
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -304,3 +308,128 @@ def test_replays_count_their_rice_launches(cuda):
             with torch.inference_mode():
                 prog.graph.replay()
             assert rice_tables.launches() == 2  # one replay runs both searches
+
+
+def _encode_bytes(x, **kw):
+    cfg = config.Encoder().into_verified()
+    return flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 2048, batch_size=2, device="cuda", **kw).to_bytes()
+
+
+def _lane_and_inline(x, monkeypatch, **kw):
+    """The bytes issued on the dispatch lane, then under the kill switch."""
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    lane = _encode_bytes(x, **kw)
+    monkeypatch.setenv("FLACENC_INLINE_DISPATCH", "1")
+    inline = _encode_bytes(x, **{k: v for k, v in kw.items() if k != "stats"})
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH")
+    return lane, inline
+
+
+@pytest.mark.parametrize("up,group", [
+    (False, "1"), (True, "1"), ("delta", "1"), ("auto", "1"), (False, "4"),
+])
+def test_lane_equals_inline_on_card(cuda, up, group, monkeypatch):
+    """Every wire and G=4 give the same bytes issued on the dispatch lane
+    and on the caller's thread (FLACENC_INLINE_DISPATCH)."""
+    monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
+    for x in (_stereo(13 * 2048 + 77), _walk(13 * 2048 + 5)):
+        stats = {}
+        lane, inline = _lane_and_inline(x, monkeypatch, upload_pack=up, stats=stats)
+        assert lane == inline
+        if group != "1":
+            assert stats["grouped_batches"] == stats["batches"]
+
+
+def test_capture_on_the_lane_beside_pins_and_waits(cuda, monkeypatch):
+    """A fresh key is captured on the lane while another thread pins a
+    host buffer no earlier allocation could serve and waits on an event
+    of its own (an io worker waiting on an earlier batch; the caller
+    pinning the next): the capture's "thread_local" error mode lets both
+    run, and the bytes equal the inline path's."""
+    import threading
+
+    x = _stereo(6 * 2048 + 9)
+    monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)())  # every key fresh
+    capturing, beside_done = threading.Event(), threading.Event()
+    forward = tbe.BatchEncoder.forward
+    lane_threads, errors = [], []
+
+    def held_forward(self, *inputs):
+        if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+            lane_threads.append(threading.current_thread().name)
+            capturing.set()
+            beside_done.wait(60)
+        return forward(self, *inputs)
+
+    def beside():
+        try:
+            assert capturing.wait(60)
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                src = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+                host = torch.empty((1 << 26) + 4099, dtype=torch.int32, pin_memory=True)
+                host[: 1 << 20].copy_(src, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+            event.synchronize()
+            assert int(host[(1 << 20) - 1]) == (1 << 20) - 1
+        except BaseException as e:  # noqa: BLE001 - reported by the test thread
+            errors.append(e)
+        finally:
+            beside_done.set()
+
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    monkeypatch.setattr(tbe.BatchEncoder, "forward", held_forward)
+    helper = threading.Thread(target=beside)
+    helper.start()
+    got = _encode_bytes(x, upload_pack=False)
+    helper.join(60)
+    assert not helper.is_alive() and not errors, errors
+    assert lane_threads and lane_threads[0].startswith("flacenc-lane")
+    monkeypatch.setattr(tbe.BatchEncoder, "forward", forward)
+    assert got == _lane_and_inline(x, monkeypatch, upload_pack=False)[1]
+
+
+def test_lane_counts_two_rice_launches_a_forward(cuda, monkeypatch):
+    """The card counts 2 Rice runs for every forward the lane issues (the
+    capture's warm-up included)."""
+    rice_tables.reset_launches()
+    forwards = tbe.PROGRAM_COUNTS["forwards"]
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    stats = {}
+    _encode_bytes(_stereo(9 * 2048 + 5), upload_pack=False, stats=stats)
+    forwards = tbe.PROGRAM_COUNTS["forwards"] - forwards
+    assert forwards >= stats["batches"] == 5
+    assert rice_tables.launches() == 2 * forwards
+
+
+def test_two_runners_in_two_threads_share_a_program(cuda, monkeypatch):
+    """Two encodes in two threads, started together three times, run the
+    same registry program (one key): the program's lock keeps each one's
+    copy-in, replay and download together, so each gets its own bytes."""
+    import threading
+
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    xs = [_stereo(11 * 2048 + 3), _walk(11 * 2048 + 3)]
+    want = [_encode_bytes(x, upload_pack=False) for x in xs]
+    keys = len(tbe._PROGRAMS)
+    barrier = threading.Barrier(2)
+    got, errors = [[], []], []
+
+    def run(i):
+        try:
+            for _ in range(3):
+                barrier.wait(60)
+                got[i].append(_encode_bytes(xs[i], upload_pack=False))
+        except BaseException as e:  # noqa: BLE001 - reported by the test thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got == [[want[0]] * 3, [want[1]] * 3]
+    assert len(tbe._PROGRAMS) == keys  # no key was added: both ran the shared program

@@ -191,7 +191,9 @@ def test_no_jax_import_in_sources():
     for new in (("ops", "upack.py"), ("fuzz.py",), ("tools", "overlap.py"),
                 ("tools", "reporter.py"), ("examples", "encode_library.py"),
                 ("examples", "corpus_encode.py"), ("tools", "bench.py"),
-                ("tools", "hwconfigs.py"), ("tools", "microbench.py")):
+                ("tools", "hwconfigs.py"), ("tools", "microbench.py"),
+                ("models", "batch_encoder.py"), ("ops", "rice_tables.py"),
+                ("parallel", "mesh.py"), ("parallel", "pipeline.py")):
         assert os.path.join(PKG, *new) in paths
     forbidden = re.compile(r"^\s*(import jax|from jax|(from|import) flacenc_tpu(\.|\s|$))", re.M)
     for path in paths:

@@ -4,8 +4,9 @@ over a packed wire and with grouped round trips, the stream and corpus
 bytes equal the JAX package's; `max_inflight` reaches the depth and never
 passes it; the pack runs on the pool; a worker's error comes out of the
 entry as itself and leaves no thread behind; and the port's
-``tools.overlap.analyze`` equals the JAX package's ``tools/overlap.py``. All
-on the CPU."""
+``tools.overlap.analyze`` equals the JAX package's ``tools/overlap.py`` on
+every key the JAX tool reports (the port adds the issue span). All on the
+CPU."""
 
 import functools
 import importlib.util
@@ -285,10 +286,18 @@ def _synthetic_timeline(seed: int):
     return events, t + 0.01
 
 
+def _equal_to_jax_and_issue_keys(got: dict, jax: dict) -> None:
+    """The port's split equals JAX's on every key JAX's reports; the port
+    adds the issue span alone."""
+    assert {k: got[k] for k in jax} == jax
+    assert set(got) - set(jax) == {"issue_s", "n_issues"}
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_overlap_analyze_equals_jax_on_synthetic_timelines(seed):
     events, wall = _synthetic_timeline(seed)
-    assert overlap.analyze(events, wall) == _jax_overlap().analyze(events, wall)
+    _equal_to_jax_and_issue_keys(overlap.analyze(events, wall),
+                                 _jax_overlap().analyze(events, wall))
 
 
 @pytest.mark.parametrize("group", ["1", "2"])
@@ -307,11 +316,12 @@ def test_overlap_analyze_equals_jax_on_a_cpu_timeline(group, monkeypatch):
     assert worker | {"asm_done", "drain_start", "drain_done"} <= names
     assert [e[2] for e in timeline] == sorted(e[2] for e in timeline)  # one clock, in order
     got = overlap.analyze(timeline, stats["wall_s"])
-    assert got == _jax_overlap().analyze(timeline, stats["wall_s"])
+    _equal_to_jax_and_issue_keys(got, _jax_overlap().analyze(timeline, stats["wall_s"]))
+    assert got["issue_s"] > 0
     if group == "2":
-        assert got["n_group_trips"] == 6 and got["n_fetches"] == 0
+        assert got["n_group_trips"] == 6 and got["n_fetches"] == 0 and got["n_issues"] == 6
     else:
-        assert got["n_fetches"] == 12
+        assert got["n_fetches"] == 12 and got["n_issues"] == 12
 
 
 
