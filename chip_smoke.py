@@ -40,6 +40,13 @@ the card, each at a size users run:
   FLACENC_INLINE_DISPATCH=1 in turns (lane, inline, inline, lane) on the
   main path's 240 s at depth 8, 60 s strict and FLACENC_FETCH_GROUP=4,
   equal bytes within each, each run's x-realtime, submit_s and split;
+- the background warm: three fresh processes encode 60 s of CD stereo,
+  the racer on, then the same under FLACENC_FETCH_GROUP=4, then raw
+  only; in each the dispatch lane captured one program only (the raw
+  one) and no grouped one, with the racer every other capture ran on the
+  capture thread, and the bytes of the three are equal; the lane and
+  background captures, their seconds, the wires used and each process's
+  peak device memory are printed;
 - the rice and mid/side wires over a mesh of two replicas, equal to
   `mesh=None`;
 - the corpus over two processes on cuda:0 joined by a gloo group, each
@@ -68,8 +75,9 @@ one to a counter in device memory, inside graph replays too), equal what
 the config implies for the batch forwards the run made (a capture's eager
 warm-up forward counts as one); and at the end
 every captured graph's replay equals its module's eager forward on the
-same batch. Every failure raises; the script exits 0 only when every phase
-passed. Its last line is one JSON object naming the card; the line before
+same batch. After every phase every warm future of the process is
+resolved, so that a warm that failed in the background fails the run.
+Every failure raises; the script exits 0 only when every phase passed. Its last line is one JSON object naming the card; the line before
 it lists each kernel with its launches on every path and its times.
 
 It needs a CUDA card (exits non-zero without one) and imports neither JAX
@@ -449,21 +457,49 @@ def rice_per_forward(cfg, block_size: int) -> int:
     return fixed + (1 if sub.use_lpc else 0)
 
 
+def settle_warms() -> None:
+    """Wait for every background warm of the process: a warm that failed
+    on a capture thread, reported by this wait or by any earlier one (the
+    measurement programs wait themselves), fails here."""
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+
+    errors = tbe.wait_all_warms()
+    failed = tbe.CAPTURE_COUNTS["warms_failed"]
+    if errors or failed:
+        raise AssertionError(f"{failed} background warms failed") \
+            from (errors[0] if errors else None)
+
+
 class Counts:
-    """Rice kernel runs, as the card counts them, and the registry's batch
-    forwards since the object was made: the card's counter is set to 0
-    here, just before a path runs, and both are read just after it."""
+    """Rice kernel runs, as the card counts them, and the registry's
+    forwards since the object was made: the warms of earlier runs are
+    waited for and the card's counter is set to 0 here, just before a path
+    runs, and both are read just after it, once its own warms have ended.
+    `warm` is how many of those forwards served no batch (`exact`)."""
 
     def __init__(self):
         from flacenc_tpu_torch.models import batch_encoder as tbe
         from flacenc_tpu_torch.ops import rice_tables
 
         self._tbe, self._rice = tbe, rice_tables
+        settle_warms()  # an earlier run's warm must not count in this one
         rice_tables.reset_launches()
-        self._forwards = tbe.PROGRAM_COUNTS["forwards"]
+        self._start = dict(tbe.PROGRAM_COUNTS)
+        self.warm = None
 
     def read(self):
-        return self._rice.launches(), self._tbe.PROGRAM_COUNTS["forwards"] - self._forwards
+        settle_warms()  # a warm's forwards count once it has ended
+        now = self._tbe.PROGRAM_COUNTS
+        self.warm = now["warm_forwards"] - self._start["warm_forwards"]
+        return self._rice.launches(), now["forwards"] - self._start["forwards"]
+
+    def exact(self, name, forwards, batch_forwards) -> None:
+        """Every forward of the run served one of its batches (a grouped
+        call serves G) or one of its warms: a capture's warm-up, a
+        background capture's check replay, an eager background warm."""
+        if forwards != batch_forwards + self.warm:
+            raise AssertionError(f"{name}: {forwards} forwards, not {batch_forwards} batch "
+                                 f"forwards + {self.warm} warm forwards")
 
 
 def check_launches(name, launches, forwards, per_forward, batch_forwards) -> None:
@@ -571,7 +607,8 @@ class Phases:
         per_forward = rice_per_forward(cfg, block_size)
         shards = max(1, tbe._mesh_device_count(mesh, 64, self.dev))
         check_launches(name, launches, forwards, per_forward, stats["batches"] * shards)
-        stats["forwards"] = forwards
+        counts.exact(name, forwards, stats["batches"] * shards)
+        stats["forwards"], stats["warm_forwards"] = forwards, counts.warm
         t0 = time.perf_counter()
         data = stream.to_bytes()  # the "python" packer's frames serialize here
         stats["serialize_s"] = time.perf_counter() - t0
@@ -597,7 +634,8 @@ class Phases:
         print(f"{name}: decoded losslessly by both decoders, MD5 matches, card decisions "
               f"== CPU decisions, launches {launches} == {per_forward} x "
               f"{stats.get('forwards', stats['batches'] * shards)} forwards "
-              f"({stats['batches']} batches x {shards} shards, captures' warm-ups included)")
+              f"({stats['batches']} batches x {shards} shards + "
+              f"{stats.get('warm_forwards', 0)} warm forwards)")
 
 
 def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None:
@@ -612,6 +650,7 @@ def oracle_equal(dev, label, cfg, x, channels, block_size, strict=False) -> None
     oracle = reference_encoder.encode_with_fixed_block_size(
         cfg, MemSource(x, channels, 16, 44100), block_size, strict_lpc=strict
     ).to_bytes()
+    settle_warms()
     if got != oracle:
         raise AssertionError(f"{label}: the port's bytes differ from the numpy oracle's")
     n = len(x) // channels
@@ -927,6 +966,10 @@ def wire_phases(phases: Phases) -> None:
         x = cd_audio(60, seed=36)
         os.environ["FLACENC_FETCH_GROUP"] = "4"
         try:
+            # the grouped program warms on the capture thread (batches go
+            # alone until it is warm): warm it first
+            encode_bytes(dev, default, x, 2, 16, 44100, upload_pack=False)
+            settle_warms()
             stats = {}
             got = phases.stream("grouped G=4", default, x, 2, 16, 44100, upload_pack=False,
                                 stats=stats)
@@ -990,13 +1033,15 @@ def dispatch_phase(phases: Phases) -> dict:
     FLACENC_INLINE_DISPATCH=1 (the caller's thread), in turns (lane,
     inline, inline, lane), with the stage timeline on: the main path's
     240 s at depth 8, then 60 s strict, then FLACENC_FETCH_GROUP=4 on 60 s
-    CD, each after one warm-up encode on the lane (so that the first turn
-    does not pay the captures of keys met for the first time alone).
+    CD, each after one warm-up encode on the lane and `wait_all_warms()`
+    (so that the first turn does not pay the captures of keys met for the
+    first time alone).
     Within each the four streams' bytes are equal, each decoded by both
     decoders with its MD5 checked and its Rice launches counted
     (`Phases.stream`); each run's x-realtime, submit_s and
     `tools.overlap.analyze` split (with the issue span) are printed."""
     from flacenc_tpu_torch import constants
+    from flacenc_tpu_torch.models import batch_encoder as tbe
     from flacenc_tpu_torch.tools import overlap
 
     default = default_config()
@@ -1019,6 +1064,7 @@ def dispatch_phase(phases: Phases) -> dict:
                                           upload_pack=False if group else "env"))
                 finally:
                     os.environ.pop("FLACENC_FETCH_GROUP", None)
+                tbe.wait_all_warms()
                 for i, turn in enumerate(DISPATCH_TURNS):
                     if turn == "inline":
                         os.environ["FLACENC_INLINE_DISPATCH"] = "1"
@@ -1045,6 +1091,8 @@ def dispatch_phase(phases: Phases) -> dict:
                         "pack_s": stats["pack_s"], "wire_batches": stats["wire_batches"],
                         "grouped_batches": stats["grouped_batches"],
                         "captures": stats["captures"], "capture_s": stats["capture_s"],
+                        "captures_background": stats["captures_background"],
+                        "capture_background_s": stats["capture_background_s"],
                         "overlap": overlap.analyze(stats["timeline"], stats["wall_s"]),
                     }
                     run["issue_ms_per_batch"] = 1e3 * run["overlap"]["issue_s"] / stats["batches"]
@@ -1065,6 +1113,107 @@ def dispatch_phase(phases: Phases) -> dict:
     finally:
         constants.par.FRAMEBUF_MULTIPLICITY = saved
         del os.environ["FLACENC_TIMELINE"]
+    return out
+
+
+WARM_ENV = ("FLACENC_FETCH_GROUP", "FLACENC_PACKED_UPLOAD", "FLACENC_INLINE_DISPATCH",
+            "FLACENC_TIMELINE")
+
+
+def warm_child(mode: str) -> None:
+    """One fresh process of phase w: 60 s of CD stereo with the racer on
+    and FLACENC_FETCH_GROUP=`mode` ("1" or "4"), its warms waited for; or,
+    for `mode` "raw", the same audio raw only (G = 1), no background
+    capture. Prints one JSON line of its captures, wires, peak device
+    memory and bytes."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    import flacenc_tpu_torch
+    from flacenc_tpu_torch.models import batch_encoder as tbe
+    from flacenc_tpu_torch.source import MemSource
+
+    dev = torch.device("cuda", 0)
+    cfg = default_config()
+    x = cd_audio(60, seed=21)
+    raw = mode == "raw"
+    os.environ["FLACENC_FETCH_GROUP"] = "1" if raw else mode
+
+    torch.empty(0, device=dev)  # the CUDA context, before the memory statistics
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts = Counts()
+    stats = {}
+    t0 = time.perf_counter()
+    data = flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, device=dev, stats=stats,
+        upload_pack=False if raw else "env").to_bytes()
+    wall = time.perf_counter() - t0
+    launches, forwards = counts.read()  # every warm of the process waited for
+    check_launches(f"warm {mode}", launches, forwards, rice_per_forward(cfg, 4096),
+                   stats["batches"])
+    counts.exact(f"warm {mode}", forwards, stats["batches"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    progs = [p for p in tbe._PROGRAMS.values() if p.capture]
+    captured = {where: [{"wire": p.key[6], "grouped": p.key[10], "s": p.capture_s}
+                        for p in progs if p.captured_by == where]
+                for where in ("lane", "background")}
+    check_lossless(data, x, 2, f"warm {mode}")
+    print(json.dumps({
+        "mode": mode, "x_realtime": len(x) / 2 / 44100 / wall, "wall_s": wall,
+        "batches": stats["batches"], "wire_batches": stats["wire_batches"],
+        "grouped_batches": stats["grouped_batches"],
+        "captures": stats["captures"], "capture_s": stats["capture_s"],
+        "captures_background": stats["captures_background"],
+        "capture_background_s": stats["capture_background_s"],
+        "process_captures": tbe.CAPTURE_COUNTS, "captured": captured,
+        "rice_launches": launches, "forwards": forwards, "warm_forwards": counts.warm,
+        "peak_memory_bytes": peak, "sha256": hashlib.sha256(data).hexdigest(),
+        "card": card_line(),
+    }, default=str))
+
+
+def warm_phase(phases: Phases) -> dict:
+    """w. The background warm, each case in a fresh process (`warm_child`):
+    the racer on, then FLACENC_FETCH_GROUP=4, then raw only. With the
+    racer on the dispatch lane captured the raw program and nothing else
+    (no grouped program), every other program was captured on the capture
+    thread; raw only, the lane captured the raw program alone and nothing
+    ran in the background. In each the Rice launches are 2 for every
+    forward and every forward served a batch or a warm; the bytes of the
+    three are equal. The peak device memory of the racer's process, with
+    captures in flight beside the stream, is printed beside the raw-only
+    process's."""
+    env = {k: v for k, v in os.environ.items() if k not in WARM_ENV}
+    out = {}
+    for mode in ("1", "4", "raw"):
+        with timed(f"w (fresh process, 60 s CD, " +
+                   ("raw only)" if mode == "raw" else f"racer on, G={mode})")):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--warm-child", mode], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+        if proc.returncode or not lines:
+            raise AssertionError(f"warm {mode}: exit {proc.returncode}\n{proc.stdout[-3000:]}")
+        r = out[mode] = json.loads(lines[-1])
+        print(f"warm {mode} (fresh process): " + json.dumps(r) + f" ({phases.card})")
+        lane = r["captured"]["lane"]
+        if len(lane) != 1 or lane[0]["wire"] is not None or lane[0]["grouped"]:
+            raise AssertionError(f"warm {mode}: the lane captured {lane}, not the raw "
+                                 "program alone")
+        background = len(r["captured"]["background"])
+        if r["captures"] != 1 or (mode == "raw") != (background == 0):
+            raise AssertionError(f"warm {mode}: {r['captures']} lane captures, "
+                                 f"{background} background")
+        phases.launches[f"warm {mode}"] = r["rice_launches"]
+    if len({r["sha256"] for r in out.values()}) != 1:
+        raise AssertionError("warm: G=1, G=4 and raw only give different bytes")
+    peaks = {mode: r["peak_memory_bytes"] for mode, r in out.items()}
+    print("warm: in both racer processes the lane captured the raw program alone, "
+          f"{len(out['1']['captured']['background'])} / {len(out['4']['captured']['background'])}"
+          " programs were captured on the capture thread, bytes == raw only; peak device "
+          f"memory {peaks['1']} / {peaks['4']} B with captures in flight against "
+          f"{peaks['raw']} B raw only ({peaks['1'] / peaks['raw']:.4f} / "
+          f"{peaks['4'] / peaks['raw']:.4f} x) ({phases.card})")
     return out
 
 
@@ -1327,7 +1476,10 @@ def graph_checks(dev) -> dict:
                          "replica": p.key[9], "grouped": p.key[10],
                          "rice_per_replay": rice_per_replay})
     torch.cuda.synchronize(dev)
-    print(f"graphs: {len(progs)} captured keys, each replay == its eager forward on one batch "
+    by = {w: sum(p.captured_by == w for p in progs) for w in ("lane", "background")}
+    print(f"graphs: {len(progs)} captured keys ({by['lane']} on a lane, {by['background']} on "
+          "the capture thread in this registry; process-wide "
+          f"{json.dumps(tbe.CAPTURE_COUNTS)}), each replay == its eager forward on one batch "
           f"({len(tbe._PROGRAMS) - len(progs)} eager keys): " + json.dumps(keys, default=str))
 
     main = [p for p in progs if p.key[:4] == (default_config().to_toml(), 2, 16, 4096)
@@ -1382,7 +1534,9 @@ def captured(main, argv) -> tuple:
 
 def measurement_phase(phases: Phases) -> None:
     """o. The port's measurement programs on the card: the bench at 60 s,
-    3 trials 1 s apart, batch 256, four times in turns with the issue on the
+    3 trials 1 s apart, batch 256 (each trial's lane and background graph
+    captures, before and after it, printed), four times in turns with the
+    issue on the
     dispatch lane and under FLACENC_INLINE_DISPATCH=1 (lane, inline,
     inline, lane; equal bytes, decoded by both decoders with the MD5
     checked; 2 Rice runs for every forward of each run, the device step's
@@ -1424,7 +1578,8 @@ def measurement_phase(phases: Phases) -> None:
             phases.launches.setdefault("bench", launches)
             turns.append({"turn": turn, **{k: extra[k] for k in (
                 "trials_x_realtime", "median_x_realtime", "wall_s", "read_md5_s", "submit_s",
-                "host_pack_s", "device_wait_s", "batches", "device_step_ms_per_batch")}})
+                "host_pack_s", "device_wait_s", "batches", "device_step_ms_per_batch",
+                "trials_captures")}})
             print(f"bench ({turn} issue, turn {i}): best trial decoded by both decoders, MD5 "
                   f"matches, launches {launches} == 2 x {forwards} forwards; "
                   + json.dumps(turns[-1]) + f" ({phases.card})")
@@ -1482,6 +1637,7 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     flacenc_tpu_torch.encode_with_fixed_block_size(  # warm-up: CUDA context, lib load
         default, MemSource(cd_audio(10, seed=1), 2, 16, 44100), 4096, device=dev
     )
+    settle_warms()  # its captures on the capture thread end before the main path
 
     # 4. the main path: 240 s of 16-bit / 44.1 kHz stereo on the card, the
     # upload-wire racer on, every forward a graph replay
@@ -1489,18 +1645,23 @@ def run_paths(phases: Phases, cli_args=()) -> None:
     stats = {}
     phases.stream("main path", default, cd_audio(240, seed=0), 2, 16, 44100, stats=stats)
     print(f"main path: wire_counts {stats['wire_batches']}, grouped_batches "
-          f"{stats['grouped_batches']}, captures {stats['captures']} in {stats['capture_s']} s, "
+          f"{stats['grouped_batches']}, captures {stats['captures']} in {stats['capture_s']} s "
+          f"on the lane, {stats['captures_background']} in {stats['capture_background_s']} s "
+          "on the capture thread, "
           f"peak device memory {torch.cuda.max_memory_allocated(dev)} B ({phases.card})")
     # the same audio again, every program the racer visits already captured
     stats = {}
     phases.stream("main path, warm registry", default, cd_audio(240, seed=0), 2, 16, 44100,
                   stats=stats)
     print(f"main path, warm registry: wire_counts {stats['wire_batches']}, captures "
-          f"{stats['captures']}")
+          f"{stats['captures']} on the lane, {stats['captures_background']} on the capture "
+          "thread")
     # the same audio at depth 8 and at depth 2, the stage timeline on
     depth_phase(phases, cd_audio(240, seed=0))
     # the dispatch lane against the inline issue, in turns
     dispatch_phase(phases)
+    # the background warm, each case in a fresh process
+    phases.warm = warm_phase(phases)
 
     # 5. against the numpy oracle: 8 full blocks plus a ragged tail
     oracle_equal(dev, "sigen stereo clip", default, sigen_clip(8 * 4096 + 1234), 2, 4096)
@@ -1556,19 +1717,21 @@ def run_paths(phases: Phases, cli_args=()) -> None:
 
     # 13. the residual-shipping packers, the mesh (raw and packed wires) and
     # the fuzz tiers
-    residual_packer_phases(phases)
-    mesh_phase(phases)
-    mesh_wire_phase(phases)
-    fuzz_phase(phases)
-    fuzz_tier_phase(phases)
+    # (each phase followed by `settle_warms`: a warm that failed fails it)
+    for phase in (residual_packer_phases, mesh_phase, mesh_wire_phase, fuzz_phase,
+                  fuzz_tier_phase):
+        phase(phases)
+        settle_warms()
 
     # 14. the upload wires and grouped round trips, then every graph
     wire_phases(phases)
+    settle_warms()
     phases.graphs = graph_checks(dev)
 
     # 15. the measurement programs (after the graph checks: their batch-256
     # programs would push the main path's out of the registry)
     measurement_phase(phases)
+    settle_warms()
 
 
 def main(argv=None) -> int:
@@ -1587,6 +1750,8 @@ def main(argv=None) -> int:
     parser.add_argument("--dcn-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--dcn-port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--dcn-out", help=argparse.SUPPRESS)
+    # one fresh process of the warm phase (the script starts three)
+    parser.add_argument("--warm-child", help=argparse.SUPPRESS)
     parser.add_argument("paths", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1595,6 +1760,9 @@ def main(argv=None) -> int:
         return 1
     if args.dcn_rank is not None:
         dcn_child(args.dcn_rank, args.dcn_port, args.dcn_out, args.paths)
+        return 0
+    if args.warm_child is not None:
+        warm_child(args.warm_child)
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from flacenc_tpu_torch import config

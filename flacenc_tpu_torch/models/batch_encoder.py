@@ -760,6 +760,23 @@ def resolve_packer(packer: str) -> str:
     return packer
 
 
+def _kind(wire) -> str:
+    """The racer's kind of an upload wire: "raw", "d" or "pack"."""
+    return "raw" if wire is None else ("d" if wire[0] == "d" else "pack")
+
+
+def _host_tensors(arrays) -> List[torch.Tensor]:
+    """Host arrays as the CPU tensors a program takes (uint32 words as int32)."""
+    return [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a))
+            for a in arrays]
+
+
+def _input_shapes(tensors) -> tuple:
+    """((shape, dtype name), ...) of a program's inputs: part of its
+    registry key."""
+    return tuple((tuple(x.shape), str(x.dtype)) for x in tensors)
+
+
 def _bucket_pad(chunk: np.ndarray, batch_size: int) -> np.ndarray:
     """Pad a partial batch with zero blocks to the full batch size, so one
     module shape serves the whole stream. Zero blocks are constant
@@ -1028,7 +1045,7 @@ def _link_est_for(bucket: int) -> LinkEstimator:
 # The program registry: one module, and on a card one CUDA graph, per key
 # ---------------------------------------------------------------------------
 
-_PROGRAM_CACHE_SIZE = 64  # entries, least recently used evicted first
+_PROGRAM_CACHE_SIZE = 64  # entries, least recently used evicted first (not while warming)
 _PROGRAMS: "collections.OrderedDict[tuple, Program]" = collections.OrderedDict()
 # (device, mesh replica) -> the memory pool that replica's captures share.
 # Graphs of one pool may reuse each other's intermediates, so a replay's
@@ -1036,18 +1053,40 @@ _PROGRAMS: "collections.OrderedDict[tuple, Program]" = collections.OrderedDict()
 # replicas of a mesh replay one after another before any copy, so each has
 # a pool of its own.
 _GRAPH_POOLS: dict = {}
-# batch forwards run by the programs (a grouped call runs G; a capture runs
-# its warm-up's and its first replay's): what launch counts are held to
-PROGRAM_COUNTS = {"forwards": 0}
+# batch forwards run by the programs (a grouped call runs G): "forwards"
+# all of them, "warm_forwards" those that served no batch (a capture's
+# warm-up, a background capture's check replay, an eager background warm),
+# so that forwards == batch forwards + warm_forwards: what launch counts
+# are held to
+PROGRAM_COUNTS = {"forwards": 0, "warm_forwards": 0}
+# graph captures in the process and their wall seconds, by the thread that
+# ran them: "lane" (a dispatch lane, or the caller's thread under
+# FLACENC_INLINE_DISPATCH) or "background" (a device's capture thread); and
+# the background warms that failed
+CAPTURE_COUNTS = {"lane": 0, "lane_s": 0.0, "background": 0, "background_s": 0.0,
+                  "warms_failed": 0}
 # the registry, the pools and the counts are shared by every runner's
-# dispatch lane in the process
+# dispatch lane and by the capture threads
 _REGISTRY_LOCK = threading.Lock()
 _COUNTS_LOCK = threading.Lock()
+_CAPTURE_LOCKS: dict = {}    # str(device) -> the lock every capture on it holds
+_CAPTURE_POOLS: dict = {}    # str(device) -> its capture thread (an executor of one)
+# (device, mesh replica) -> the lock held from a replay from that replica's
+# memory pool to the download (or, for a capture's check, the read) of its
+# outputs: a later replay of another graph of the pool may overwrite them
+_POOL_LOCKS: dict = {}
 
 
-def _count_forwards(n: int) -> None:
+def _count_forwards(n: int, warm: int = 0) -> None:
     with _COUNTS_LOCK:
         PROGRAM_COUNTS["forwards"] += n
+        PROGRAM_COUNTS["warm_forwards"] += warm
+
+
+def _count_capture(where: str, seconds: float) -> None:
+    with _COUNTS_LOCK:
+        CAPTURE_COUNTS[where] += 1
+        CAPTURE_COUNTS[where + "_s"] += seconds
 
 
 def _outputs_equal(a, b) -> bool:
@@ -1064,6 +1103,20 @@ def _graph_pool(dev: torch.device, replica: tuple):
     return pool
 
 
+def _pool_lock(dev: torch.device, replica: tuple):
+    # no lock of its own: `program_for` makes programs holding _REGISTRY_LOCK,
+    # and one `setdefault` is atomic
+    return _POOL_LOCKS.setdefault((dev, replica), threading.RLock())
+
+
+def _per_device(table: dict, dev: torch.device, make):
+    with _REGISTRY_LOCK:
+        item = table.get(str(dev))
+        if item is None:
+            item = table[str(dev)] = make(dev)
+    return item
+
+
 def _on_card(dev: torch.device):
     """The per-thread CUDA state an issue needs, set on whichever thread
     runs it: `dev` current and its default stream current on it. Every
@@ -1077,90 +1130,199 @@ def _on_card(dev: torch.device):
     return stack
 
 
+def _capture_pool(dev: torch.device) -> concurrent.futures.ThreadPoolExecutor:
+    """The device's capture thread: one worker that runs warms
+    (`Program.warm`) one at a time in the order they were queued, so that
+    two captures never overlap. It lives until `close_capture_threads`."""
+    return _per_device(_CAPTURE_POOLS, dev, lambda d: concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix=f"flacenc-capture-{d}"))
+
+
+def close_capture_threads() -> None:
+    """Finish the queued warms and join every device's capture thread; a
+    later warm starts a new one."""
+    with _REGISTRY_LOCK:
+        pools = list(_CAPTURE_POOLS.values())
+        _CAPTURE_POOLS.clear()
+    for pool in pools:
+        pool.shutdown(wait=True)
+
+
 class Program:
     """One registry entry: a `BatchEncoder` on one device and, when
     `capture` (a card, and a forward that never syncs), the CUDA graph of
     its forward with static input and output buffers.
 
-    The first call copies its inputs into fresh static buffers, runs the
-    module once eagerly on a side stream (the warm-up), captures the forward
-    into a graph in its replica's memory pool, replays it on the same
-    inputs and checks that the replay's outputs equal the warm-up's
-    (`checked`); any failure raises. Later calls copy their inputs into the
-    static buffers and replay: a replay overwrites the static outputs, so
-    the caller enqueues its download of them before the next replay from
-    the same pool, holding `lock` from the call to the download's event
-    (a registry program is shared by every runner in the process). Without
-    `capture` a call runs the module eagerly.
+    `ready` resolves once the program has run once: on a card, once its
+    forward is captured, replayed and checked against an eager warm-up (a
+    failure raises); without `capture`, once one eager forward has run. The
+    first run happens either on a dispatch lane, at the first call, or on
+    the device's capture thread, when `warm` queued it there: the JAX
+    package's background compile and first run, which `BatchRunner` asks
+    for when it races the wires, so that its lane only ever calls a program
+    already run (the raw program of a stream's first batch apart). A warm
+    that fails sets its error on `ready` and drops the entry from the
+    registry, so that a later runner tries afresh.
 
-    Calls run on the device's default stream (`_on_card`), on a runner's
-    dispatch lane. The capture synchronizes the device before it begins,
-    which stalls only the lane that met the key, once per key; it captures
-    in "thread_local" error mode, so other threads may pin host memory and
-    wait on events while it runs."""
+    A capture copies its inputs into fresh static buffers, runs the module
+    once eagerly on a side stream (the warm-up), captures the forward into
+    a graph in its replica's memory pool on that stream, replays it on the
+    device's default stream and checks that the replay's outputs equal the
+    warm-up's (`checked`). Before it begins it waits for its side stream
+    only: a device-wide sync could land inside another thread's capture.
+    Captures on one device hold one lock, so they never overlap, and use
+    the "thread_local" error mode, so other threads may replay, pin host
+    memory and wait on events meanwhile. Later calls copy their inputs
+    into the static buffers and replay. A replay overwrites the static
+    outputs, and those of a graph may lie in the blocks another graph of
+    its pool uses for its intermediates, so from a replay to the download
+    (or the check's read) of its outputs the replayer holds `pool_lock`,
+    one per memory pool; the caller also holds `lock` from the call to the
+    download's event (a registry program is shared by every runner in the
+    process, and a warm holds it too). A lane takes its programs' locks
+    before their pool locks, and the capture thread never waits for a pool
+    lock while it holds the capture lock. Every call and replay runs on
+    the device's default stream (`_on_card`). Without `capture` a call
+    runs the module eagerly. The module is built at its first use."""
 
-    def __init__(self, key: tuple, module: nn.Module, device: torch.device, capture: bool,
-                 replica: tuple = ()):
+    def __init__(self, key: tuple, build, device: torch.device, capture: bool,
+                 replica: tuple = (), batches: int = 1):
         self.key = key
-        self.module = module
+        self._build = build  # makes the module
+        self._module: Optional[nn.Module] = None
         self.device = device
         self.replica = replica
         self.capture = capture and device.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_in: List[torch.Tensor] = []
         self.static_out = None
-        self.batches = max(1, module.grouped)  # batch forwards one call runs
+        self.batches = batches  # batch forwards one call runs
         self.checked: Optional[bool] = None  # replay == eager on the first call
-        self.capture_s = 0.0     # wall seconds of the first call (warm-up, capture, check)
+        self.capture_s = 0.0     # wall seconds of the capture (warm-up, capture, check)
+        self.captured_by: Optional[str] = None  # "lane" or "background"
+        self.first_run: Optional[str] = None    # the thread that ran it first
+        self.ready: concurrent.futures.Future = concurrent.futures.Future()
+        self._warm_queued = False
+        self._build_lock = threading.Lock()
         self.lock = threading.Lock()  # held from a call to its outputs' download event
+        self.pool_lock = (_pool_lock(device, replica) if self.capture
+                          else contextlib.nullcontext())
+
+    @property
+    def module(self) -> nn.Module:
+        if self._module is None:
+            with self._build_lock:
+                if self._module is None:
+                    self._module = self._build()
+        return self._module
+
+    def warming(self) -> bool:
+        """Whether a warm is queued or running and has not finished."""
+        return self._warm_queued and not self.ready.done()
+
+    def _ran(self) -> None:
+        """Called, holding `lock`, after a first run that succeeded."""
+        if self.first_run is None:
+            self.first_run = threading.current_thread().name
+        if not self.ready.done():
+            self.ready.set_result(None)
 
     def __call__(self, *inputs: torch.Tensor):
         with _on_card(self.device):
             if not self.capture:
+                out = self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
                 _count_forwards(self.batches)
-                return self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
+                self._ran()
+                return out
             if self.graph is None:
-                return self._capture(inputs)
+                return self._capture(inputs, "lane")
             for static, x in zip(self.static_in, inputs):
                 static.copy_(x, non_blocking=True)
             self.graph.replay()
         _count_forwards(self.batches)
         return self.static_out
 
-    def _capture(self, inputs):
+    def warm(self, make_inputs) -> tuple:
+        """Queue the program's first run on its device's capture thread,
+        on the host tensors `make_inputs()` returns there, unless it has
+        run or a warm is queued. Returns (`ready`, [this program] if this
+        call queued the warm, else [])."""
+        with _REGISTRY_LOCK:
+            queued = not self._warm_queued and not self.ready.done()
+            self._warm_queued = self._warm_queued or queued
+        if queued:
+            _capture_pool(self.device).submit(self._warm, make_inputs)
+        return self.ready, [self] if queued else []
+
+    def _warm(self, make_inputs) -> None:
+        """Capture thread: the first run, holding `lock`; an error goes to
+        `ready`, and the entry leaves the registry."""
+        try:
+            with torch.inference_mode(), _on_card(self.device), self.lock:
+                if self.ready.done():
+                    return
+                inputs = make_inputs()
+                if self.capture:
+                    self._capture(inputs, "background")
+                else:
+                    self.module(*(x.to(self.device) for x in inputs))
+                    _count_forwards(self.batches, warm=self.batches)
+                    self._ran()
+        except BaseException as e:  # noqa: BLE001 - raised where the runner asks for it
+            with _REGISTRY_LOCK:
+                if _PROGRAMS.get(self.key) is self:
+                    del _PROGRAMS[self.key]
+            with _COUNTS_LOCK:
+                CAPTURE_COUNTS["warms_failed"] += 1
+            if not self.ready.done():
+                self.ready.set_exception(e)
+
+    def _capture(self, inputs, where: str):
         t0 = time.perf_counter()
         dev = self.device
+        module = self.module
         with torch.cuda.device(dev):
-            self.static_in = [torch.empty(x.shape, dtype=x.dtype, device=dev) for x in inputs]
-            for static, x in zip(self.static_in, inputs):
-                static.copy_(x, non_blocking=True)
-            main = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                eager = self.module(*self.static_in)
-            main.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            # capture_begin/end on the side stream, as `torch.cuda.graph`
-            # does, without its gc.collect() and empty_cache(): those cost
-            # tens to hundreds of ms in a process holding a stream's frames,
-            # and the cache they empty is what the next forward allocates from
-            torch.cuda.synchronize(dev)
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=_graph_pool(dev, self.replica),
-                                    capture_error_mode="thread_local")
-                try:
-                    out = self.module(*self.static_in)
-                finally:
-                    graph.capture_end()
-            main.wait_stream(side)
-            graph.replay()
-            _count_forwards(2 * self.batches)  # the warm-up's and the replay's
-            self.checked = _outputs_equal(out, eager)
+            with _per_device(_CAPTURE_LOCKS, dev, lambda _: threading.Lock()):
+                self.static_in = [torch.empty(x.shape, dtype=x.dtype, device=dev)
+                                  for x in inputs]
+                for static, x in zip(self.static_in, inputs):
+                    static.copy_(x, non_blocking=True)
+                main = torch.cuda.current_stream(dev)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    eager = module(*self.static_in)
+                graph = torch.cuda.CUDAGraph()
+                # capture_begin/end on the side stream, as `torch.cuda.graph`
+                # does, without its device sync, gc.collect() and
+                # empty_cache(): the sync could land inside another thread's
+                # capture, the other two cost tens to hundreds of ms in a
+                # process holding a stream's frames, and the cache they empty
+                # is what the next forward allocates from
+                side.synchronize()
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=_graph_pool(dev, self.replica),
+                                        capture_error_mode="thread_local")
+                    try:
+                        out = module(*self.static_in)
+                    finally:
+                        graph.capture_end()
+                main.wait_stream(side)
+            # the check: replay and read the outputs before another graph of
+            # the pool replays (a lane already holds the pool lock)
+            with self.pool_lock:
+                graph.replay()
+                # the warm-up's and the replay's; on a lane the replay is its batch's
+                _count_forwards(2 * self.batches,
+                                warm=self.batches if where == "lane" else 2 * self.batches)
+                self.checked = _outputs_equal(out, eager)
             if not self.checked:
                 raise RuntimeError(f"the CUDA graph of {self.key[5:8]} differs from its eager forward")
             self.graph, self.static_out = graph, out
         self.capture_s = time.perf_counter() - t0
+        self.captured_by = where
+        _count_capture(where, self.capture_s)
+        self._ran()
         return out
 
 
@@ -1178,9 +1340,10 @@ def program_for(cfg, nch: int, bps: int, block_size: int, strict_lpc: bool, pack
                 wire, shapes: tuple, device: torch.device, grouped: int = 0,
                 replica: tuple = ()) -> Program:
     """The registry's program for a key (config, C, bps, T, strict, packer,
-    wire, input shapes and dtypes, device, replica of a mesh, G), built and
-    inserted on a miss, the least recently used of `_PROGRAM_CACHE_SIZE`
-    entries evicted. Safe to call from several threads."""
+    wire, input shapes and dtypes, device, replica of a mesh, G), inserted
+    on a miss, the least recently used of `_PROGRAM_CACHE_SIZE` entries
+    evicted (a program being warmed stays until its warm ends). Safe to
+    call from several threads."""
     key = (cfg.to_toml(), nch, bps, block_size, strict_lpc, packer, wire, shapes,
            str(device), replica, grouped)
     with _REGISTRY_LOCK:
@@ -1188,44 +1351,92 @@ def program_for(cfg, nch: int, bps: int, block_size: int, strict_lpc: bool, pack
         if prog is not None:
             _PROGRAMS.move_to_end(key)
             return prog
-        module = BatchEncoder(
-            cfg, nch, bps, block_size, strict_lpc=strict_lpc, packed_wire=wire,
-            wire_encoded=packer != "native2", grouped=grouped,
-        ).to(device)
-        prog = Program(key, module, device, graph_capturable(cfg, strict_lpc, block_size),
-                       replica)
+        build = functools.partial(_build_module, cfg, nch, bps, block_size, strict_lpc,
+                                  wire, packer, grouped, device)
+        prog = Program(key, build, device, graph_capturable(cfg, strict_lpc, block_size),
+                       replica, batches=max(1, grouped))
         _PROGRAMS[key] = prog
         while len(_PROGRAMS) > _PROGRAM_CACHE_SIZE:
-            _PROGRAMS.popitem(last=False)
+            old = next((k for k, p in _PROGRAMS.items() if not p.warming()), None)
+            if old is None:
+                break
+            del _PROGRAMS[old]
     return prog
 
 
-def _sync_programs(grouped: Optional[bool]) -> None:
-    with _REGISTRY_LOCK:
-        progs = list(_PROGRAMS.values())
-    devices = {p.device for p in progs
-               if p.device.type == "cuda" and (grouped is None or bool(p.key[-1]) == grouped)}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+def _build_module(cfg, nch, bps, block_size, strict_lpc, wire, packer, grouped, device):
+    return BatchEncoder(
+        cfg, nch, bps, block_size, strict_lpc=strict_lpc, packed_wire=wire,
+        wire_encoded=packer != "native2", grouped=grouped,
+    ).to(device)
 
 
-def wait_wire_warms(timeout: Optional[float] = None) -> None:
-    """Return once every per-batch program's capture and warm replay has
-    finished on its card. A capture runs on the dispatch lane of the runner
-    that met its key, which waits for it before that runner's encode
-    returns, so this only waits for the work already queued; `timeout` is
-    accepted for the JAX package's signature."""
-    _sync_programs(False)
+# outstanding warm futures, as in the JAX package: of the per-batch wire
+# programs (`BatchRunner._start_warm`) and of the grouped programs
+# (`_warm_group`); a caller blocks on them after a warm-up encode with
+# `wait_wire_warms` / `wait_group_warms` / `wait_all_warms`. Each append
+# prunes the futures that have succeeded (a failed one stays until a wait
+# reports it).
+_WIRE_WARM_FUTURES: list = []
+_GROUP_WARM_FUTURES: list = []
+_WARMS_LOCK = threading.Lock()
 
 
-def wait_group_warms(timeout: Optional[float] = None) -> None:
+def _track(pending: list, future) -> None:
+    with _WARMS_LOCK:
+        pending[:] = [f for f in pending if not f.done() or f.exception() is not None]
+        pending.append(future)
+
+
+def _drain_warm_futures(pending, timeout: Optional[float]) -> list:
+    """Wait on each warm future under ONE shared deadline, going on past
+    failures: a failed or slow warm leaves its runner on a fallback (the
+    per-batch path, or a warm wire), a valid state, so one bad warm must not
+    abandon the other waits or raise into the caller. Returns the errors of
+    the warms that failed."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    errors = []
+    for fut in pending:
+        try:
+            left = None if deadline is None else max(0.0, deadline - time.monotonic())
+            fut.result(timeout=left)
+        except concurrent.futures.TimeoutError:
+            continue
+        except Exception as e:  # noqa: BLE001 - a warm's error, reported to the caller
+            errors.append(e)
+    return errors
+
+
+def _take(pending: list) -> list:
+    with _WARMS_LOCK:
+        taken = list(pending)
+        pending.clear()
+    return taken
+
+
+def wait_wire_warms(timeout: Optional[float] = None) -> list:
+    """Block until every outstanding background warm of a wire program has
+    settled, or `timeout` seconds have passed (None: no limit). Never
+    raises, never synchronizes a device: returns the errors of the warms
+    that failed (each also raises from the next `submit` that asks for its
+    wire)."""
+    return _drain_warm_futures(_take(_WIRE_WARM_FUTURES), timeout)
+
+
+def wait_group_warms(timeout: Optional[float] = None) -> list:
     """As `wait_wire_warms`, for the grouped programs."""
-    _sync_programs(True)
+    return _drain_warm_futures(_take(_GROUP_WARM_FUTURES), timeout)
 
 
-def wait_all_warms(timeout: Optional[float] = None) -> None:
-    """Return once every pending capture, per-batch and grouped, is done."""
-    _sync_programs(None)
+def wait_all_warms(timeout: Optional[float] = None) -> list:
+    """One barrier for measurement programs: the wire warms, then the
+    grouped warms, under one shared deadline (each half gets what is left).
+    Never raises, never synchronizes a device; returns the failed warms'
+    errors."""
+    t0 = time.monotonic()
+    errors = wait_wire_warms(timeout)
+    left = None if timeout is None else max(0.0, timeout - (time.monotonic() - t0))
+    return errors + wait_group_warms(left)
 
 
 class BatchResult(NamedTuple):
@@ -1324,6 +1535,17 @@ class BatchRunner:
     Programs come from the process-wide registry (`program_for`): on a card
     each is a captured CUDA graph replayed for every batch (the direct-MSE
     and IRLS forwards, which sync, run eagerly), on the CPU the eager module.
+    When the racer runs and the stream is not strict (`async_compile`, the
+    JAX package's rule), a program's first run (on a card its capture)
+    happens on its device's capture thread, never on the lane, but for the
+    raw program: the first batch warms the delta16 wire and the wire its
+    scan picks (`_prewarm`), and a batch whose chosen wire is not warm yet
+    starts its warm and ships on delta16 if this runner knows it warm, else
+    raw (`_fallback_wire`); `wire_batches` counts the wire used. A grouped
+    program is warmed on the capture thread in every mode, and batches go
+    one by one until it is warm. Readiness is decided on the caller's
+    thread, in `submit`; a warm that failed raises from the next `submit`
+    that asks for its wire or group. `wait_all_warms` waits for the warms.
 
     `upload_pack` picks the upload wire ("env" reads FLACENC_PACKED_UPLOAD:
     unset races the wires, "1" the dense wire, "d" the delta16 wire, "0"
@@ -1392,6 +1614,16 @@ class BatchRunner:
         self._lane_tail: Optional[concurrent.futures.Future] = None  # the last lane task
         self._programs: dict = {}  # (wire, shapes, G) -> Program, or a mesh's ShardedEncoder of them
         self._init_upload(upload_pack)
+        # background warms (the JAX package's background compile): when the
+        # racer runs and the stream is not strict, a wire's program that is
+        # not warm yet is warmed on its device's capture thread while the
+        # batches ship on a warm wire (`_wire_ready`, `_fallback_wire`)
+        self.async_compile = self.upload_mode == "auto" and not strict_lpc
+        self._warming: dict = {}       # wire -> the ready future of its warm
+        self._ready_wires: set = set()  # wires known to run without a first run
+        self._warmed: List[Program] = []  # programs whose warm this runner queued
+        self._group_warm: Optional[concurrent.futures.Future] = None
+        self._group_key: Optional[tuple] = None  # (wire, payload shapes) of that program
         self._est = _link_est_for(_shape_bucket(batch_size * nch * block_size))
         # wire kind of the last submitted batch: the racer's incumbent
         self._wire_kind = {"on": "pack", "delta": "d"}.get(self.upload_mode, "raw")
@@ -1518,6 +1750,8 @@ class BatchRunner:
                 kind = "pack"
             elif self.upload_mode == "delta":
                 kind = "d"
+        if self.async_compile and not self.wire_counts and not self._warming:
+            self._prewarm(chunk)
         packed = None
         if kind == "pack":
             packed = self._try_pack_cached(chunk)
@@ -1525,10 +1759,82 @@ class BatchRunner:
             packed = upack.pack_delta(chunk)
         if packed is not None:
             wire, payload = self._sticky(*packed)
-            return wire, tuple(payload), "d" if wire[0] == "d" else "pack"
+            return wire, tuple(payload), _kind(wire)
+        return None, self._raw(chunk), "raw"
+
+    def _raw(self, chunk: np.ndarray) -> tuple:
         # int16 upload when bps <= 16 halves the host->device bytes
-        up = chunk if self.bps > 16 or chunk.dtype == np.int16 else chunk.astype(np.int16)
-        return None, (up,), "raw"
+        return (chunk if self.bps > 16 or chunk.dtype == np.int16 else chunk.astype(np.int16),)
+
+    # -- background warms (the JAX package's `_start_warm` and its kin) ------
+
+    def _wire_ready(self, wire, payload) -> bool:
+        """Whether `wire`'s program can run without a first run on the
+        lane: raw always (its program is the one first run on the lane), a
+        wire this runner already found warm, a program an earlier runner
+        warmed (the registry entry), or one whose warm has finished, whose
+        error this raises."""
+        if wire is None or wire in self._ready_wires:
+            return True
+        ready = self._warming.get(wire)
+        if ready is None:
+            ready = self._program(wire, _input_shapes(_host_tensors(payload))).ready
+        if not ready.done():
+            return False
+        ready.result()
+        self._ready_wires.add(wire)
+        return True
+
+    def _start_warm(self, wire, payload) -> None:
+        """Warm `wire`'s program on its capture thread, on this payload,
+        unless it is warming or already ran well."""
+        if wire in self._warming:
+            return
+        prog = self._program(wire, _input_shapes(_host_tensors(payload)))
+        if prog.ready.done() and prog.ready.exception() is None:
+            self._ready_wires.add(wire)
+            return
+        ready, queued = prog.warm(lambda: _host_tensors(payload))
+        self._warmed += queued
+        self._warming[wire] = ready
+        _track(_WIRE_WARM_FUTURES, ready)
+
+    def _prewarm(self, chunk: np.ndarray) -> None:
+        """On the first batch: warm the delta16 wire (bps <= 16) and the
+        dense wire the batch's full scan picks, seeding the sticky unary
+        budgets with the latter."""
+        if self._delta_eligible:
+            self._start_warm(*upack.pack_delta(chunk))
+        packed = upack.try_pack(chunk, self.bps)
+        if packed is not None:
+            wire, payload = packed
+            if wire[0] == "r":
+                self._wu_sticky[(wire[1], wire[2])] = wire[3]
+            elif wire[0] == "m":
+                _, om, pm, wum, os2, ps, wus = wire
+                self._wu_sticky[("m", om, pm, os2, ps)] = (wum, wus)
+            self._start_warm(wire, payload)
+
+    def _fallback_wire(self, chunk: np.ndarray) -> tuple:
+        """(wire, payload) of a warm wire for a batch whose chosen wire is
+        warming: delta16 once this runner knows it warm, else raw."""
+        if self._delta_eligible and ("d", 2) in self._ready_wires:
+            wire, payload = upack.pack_delta(chunk)
+            return wire, tuple(payload)
+        return None, self._raw(chunk)
+
+    def _warm_group(self, wire, payload) -> None:
+        """Warm the grouped program of this wire and payload shapes on its
+        capture thread, on the payload stacked G deep."""
+        g = self.fetch_group or _FETCH_GROUP_AUTO
+        shapes = _input_shapes(_host_tensors(payload))
+        self._group_key = (wire, shapes)
+        prog = self._program(wire, tuple(((g,) + s, d) for s, d in shapes), grouped=g)
+        ready, queued = prog.warm(lambda: _host_tensors([np.stack([a] * g) for a in payload]))
+        self._warmed += queued
+        self._group_warm = ready
+        if not ready.done():
+            _track(_GROUP_WARM_FUTURES, ready)
 
     # -- programs and launches ---------------------------------------------
 
@@ -1537,11 +1843,11 @@ class BatchRunner:
             with self._timeline_lock:
                 self.timeline.append((event, idx, time.perf_counter()) + extra)
 
-    def _program(self, wire, inputs, grouped: int = 0):
-        """The runner's program for these inputs: the registry's program on
-        its device, or over a mesh a ``parallel.mesh.ShardedEncoder`` whose
-        replicas are the registry's programs for the shards."""
-        shapes = tuple((tuple(x.shape), str(x.dtype)) for x in inputs)
+    def _program(self, wire, shapes: tuple, grouped: int = 0):
+        """The runner's program for inputs of these (shape, dtype) pairs:
+        the registry's program on its device, or over a mesh a
+        ``parallel.mesh.ShardedEncoder`` whose replicas are the registry's
+        programs for the shards."""
         key = (wire, shapes, grouped)
         prog = self._programs.get(key)
         if prog is None:
@@ -1564,18 +1870,20 @@ class BatchRunner:
         each replica on its shard) and enqueue every output's download into
         its rows of one host buffer, behind one CUDA event per card. It
         sets the thread's inference mode, device and stream itself, and
-        holds every program's lock from its call to the event's record.
-        Returns (host outputs, events, uploaded inputs)."""
-        inputs = [torch.from_numpy(np.ascontiguousarray(
-            a.view(np.int32) if a.dtype == np.uint32 else a)) for a in arrays]
+        holds every program's lock, then every program's pool lock, from
+        its call to the event's record. Returns (host outputs, events,
+        uploaded inputs)."""
+        inputs = _host_tensors(arrays)
         with torch.inference_mode(), _on_card(self.dev), contextlib.ExitStack() as held:
             if self.on_cuda:
                 inputs = [x.pin_memory() for x in inputs]
-            prog = self._program(wire, inputs, grouped)
+            prog = self._program(wire, _input_shapes(inputs), grouped)
             sharded = isinstance(prog, pmesh.ShardedEncoder)
             progs = prog.replicas if sharded else [prog]
             for p in progs:  # in mesh order, so two runners never hold them crosswise
                 held.enter_context(p.lock)
+            for p in progs:
+                held.enter_context(p.pool_lock)
             fresh = [p for p in progs if p.capture and p.graph is None]
             shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
             with self._report_lock:
@@ -1665,11 +1973,13 @@ class BatchRunner:
 
     # -- grouped round trips ------------------------------------------------
 
-    def _group_target(self) -> int:
-        """Round-trip group size for the next batch: 1 (alone) unless the
-        "native2" packer runs unsplit and not strict, and either
+    def _group_target(self, wire, payload) -> int:
+        """Round-trip group size for this batch: 1 (alone) unless the
+        "native2" packer runs unsplit and not strict, either
         FLACENC_FETCH_GROUP pins G > 1 or the download-wait EWMA shows a
-        slow link."""
+        slow link, and the grouped program of this wire and these payload
+        shapes is warm; until it is, its warm runs on the capture thread
+        (its error raises here)."""
         if self.packer != "native2" or self.mesh is not None or self.strict_lpc:
             return 1
         g = self.fetch_group or _FETCH_GROUP_AUTO
@@ -1679,6 +1989,11 @@ class BatchRunner:
             f = self._fetch_ewma
             if f is None or f <= _GROUP_FETCH_MIN_S:
                 return 1
+        if self._group_key != (wire, _input_shapes(_host_tensors(payload))):
+            self._warm_group(wire, payload)
+        if not self._group_warm.done():
+            return 1
+        self._group_warm.result()
         return g
 
     def _flush_group(self) -> None:
@@ -1732,6 +2047,12 @@ class BatchRunner:
         chunk = _bucket_pad(blocks, self.batch_size)
         verify_sample_range(chunk, self.bps)
         wire, payload, kind = self._upload(chunk)
+        if self.async_compile and not self._wire_ready(wire, payload):
+            # the chosen wire's program warms on the capture thread; this
+            # batch ships on a warm wire, so the stream never waits for it
+            self._start_warm(wire, payload)
+            wire, payload = self._fallback_wire(chunk)
+            kind = _kind(wire)
         nbytes = sum(a.nbytes for a in payload)
         self._wire_kind = kind
         self.upload_pack = wire is not None
@@ -1742,7 +2063,7 @@ class BatchRunner:
         if open_ and (open_[0].wire != wire or [a.shape for a in open_[0].payload]
                       != [a.shape for a in payload]):
             self._flush_group()  # mixed payloads never stack into one group
-        g = self._group_target()
+        g = self._group_target(wire, payload)
         if g > 1:
             self._group_open.append(batch)
             self._mark("parked", seq)
@@ -1825,7 +2146,11 @@ class BatchRunner:
     def close(self) -> None:
         """Shut the dispatch lane, then the io workers down (a running
         launch may still hand its batch to a worker): work not started is
-        cancelled, running work is finished, and every thread is joined."""
+        cancelled, running work is finished, and every thread is joined.
+        The warms this runner queued run on, on the device's capture
+        thread (as the JAX package's background compiles do;
+        `wait_all_warms` waits for them, `close_capture_threads` joins the
+        thread)."""
         self._lane.shutdown(wait=True, cancel_futures=True)
         self._pool.shutdown(wait=True, cancel_futures=True)
 
@@ -1833,11 +2158,14 @@ class BatchRunner:
         """The runner's wire, group and program counts, for `stats`."""
         with self._report_lock:
             captures, capture_s = self.captures, self.capture_s
+        background = [p for p in self._warmed if p.captured_by == "background"]
         out = {
             "wire_batches": {repr(k): v for k, v in self.wire_counts.items()},
             "grouped_batches": self.grouped_batches,
             "captures": captures,
             "capture_s": capture_s,
+            "captures_background": len(background),
+            "capture_background_s": sum((p.capture_s for p in background), 0.0),
             "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
         }
         if self.timeline is not None:
@@ -1899,7 +2227,9 @@ def encode_with_fixed_block_size(
     pack_s (the workers' pack seconds), batches,
     max_inflight (at most FLACENC_PIPELINE_DEPTH), frames and wall_s; and
     the runner's wire_batches (batches per upload wire), grouped_batches,
-    captures (CUDA graphs this encode captured) and link_mbps, plus
+    captures and capture_s (CUDA graphs this encode captured on its lane,
+    and their seconds), captures_background and capture_background_s (those
+    its warms captured on a capture thread) and link_mbps, plus
     timeline with FLACENC_TIMELINE=1. A JSON line of the run's counts is
     logged at INFO (``FLACENC_LOG=info``)."""
     cfg = config.inner if isinstance(config, Verified) else config

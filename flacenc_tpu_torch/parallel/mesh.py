@@ -13,7 +13,9 @@ one card, or the CPU, exercises the split.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,13 +70,37 @@ class ShardedEncoder:
     per-shard outputs with their batch slices (a `BatchRunner` calls it on
     its dispatch lane, each replica's lock held). Calling the object
     returns what the single-device module returns, in batch order, on the
-    mesh's first device."""
+    mesh's first device. Over registry programs, `warm` warms every
+    replica on its shard and `ready` resolves once all of them have run."""
 
     def __init__(self, replicas: Sequence, mesh: BlockMesh):
         if len(replicas) != mesh.size:
             raise ValueError(f"{len(replicas)} replicas for a {mesh.size}-device mesh")
         self.mesh = mesh
         self.replicas = list(replicas)
+        self._ready: Optional[concurrent.futures.Future] = None
+
+    @property
+    def ready(self) -> concurrent.futures.Future:
+        """Resolves once every replica's `ready` has (replicas that are
+        registry programs): with the first replica's error, if any."""
+        if self._ready is None:
+            self._ready = _all_of([rep.ready for rep in self.replicas])
+        return self._ready
+
+    def warm(self, make_inputs) -> tuple:
+        """Warm every replica on its shard of `make_inputs()` (the
+        replicas' `warm`). Returns (`ready`, the replicas whose warm this
+        call queued)."""
+        n = self.mesh.size
+        queued = []
+        for i, rep in enumerate(self.replicas):
+            def shard(i=i):
+                inputs = make_inputs()
+                per = inputs[0].shape[0] // n
+                return [x[i * per:(i + 1) * per] for x in inputs]
+            queued += rep.warm(shard)[1]
+        return self.ready, queued
 
     def launch(self, *inputs: torch.Tensor) -> List[Tuple[slice, object]]:
         n = self.mesh.size
@@ -101,6 +127,29 @@ class ShardedEncoder:
             return cat(outs)
         fields = [cat(parts) for parts in zip(*outs)]
         return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def _all_of(futures: Sequence[concurrent.futures.Future]) -> concurrent.futures.Future:
+    """A future that resolves once all of `futures` have: with the first
+    error among them in their order, else with None."""
+    out: concurrent.futures.Future = concurrent.futures.Future()
+    left = [len(futures)]
+    lock = threading.Lock()
+
+    def settled(_):
+        with lock:
+            left[0] -= 1
+            if left[0]:
+                return
+        errors = [f.exception() for f in futures if f.exception() is not None]
+        if errors:
+            out.set_exception(errors[0])
+        else:
+            out.set_result(None)
+
+    for f in futures:
+        f.add_done_callback(settled)
+    return out
 
 
 def shard_encoder_fn(encoder: torch.nn.Module, mesh: BlockMesh) -> ShardedEncoder:

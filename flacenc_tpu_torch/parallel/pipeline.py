@@ -56,6 +56,8 @@ class PipelineStats:
     grouped_batches: int = 0    # batches through grouped round trips
     captures: int = 0           # CUDA graphs this encode captured
     capture_s: float = 0.0      # wall seconds of those captures, on the dispatch lane
+    captures_background: int = 0      # CUDA graphs its warms captured on a capture thread
+    capture_background_s: float = 0.0  # wall seconds of those
     link_mbps: Optional[float] = None  # the racer's latest upload rate
 
 
@@ -240,6 +242,8 @@ def encode_corpus(
     stats.grouped_batches = report["grouped_batches"]
     stats.captures = report["captures"]
     stats.capture_s = report["capture_s"]
+    stats.captures_background = report["captures_background"]
+    stats.capture_background_s = report["capture_background_s"]
     stats.link_mbps = report["link_mbps"]
 
     results: Dict[str, Stream] = {}

@@ -70,10 +70,12 @@ def _emit(value: float, extra: dict) -> None:
 
 
 def _timed_trials(audio, rate, bps, block, batch, packer, trials,
-                  trial_gap_s, emit_partial, extra_base, device="cuda"):
+                  trial_gap_s, emit_partial, extra_base, device="cuda", captures=None):
     """Timed encode trials on `device`; emits a degraded result line after
     each. Returns (best wall s, best trial's stream bytes, its stats, every
-    trial's x-realtime)."""
+    trial's x-realtime). A `captures` list gets, for each trial, the
+    process's graph captures on a lane and on a capture thread before and
+    after it, and their seconds inside it (`_capture_window`)."""
     from .. import config
     from ..models import batch_encoder as be
     from ..source import MemSource
@@ -90,6 +92,7 @@ def _timed_trials(audio, rate, bps, block, batch, packer, trials,
             be.wait_all_warms(timeout=240)
         src = MemSource(audio, 2, bps, rate)
         trial_stats = {}
+        before = dict(be.CAPTURE_COUNTS)
         t0 = time.perf_counter()
         stream = be.encode_with_fixed_block_size(
             cfg, src, block, batch_size=batch, packer=packer, stats=trial_stats,
@@ -97,6 +100,8 @@ def _timed_trials(audio, rate, bps, block, batch, packer, trials,
         )
         data = stream.to_bytes()
         elapsed = time.perf_counter() - t0
+        if captures is not None:
+            captures.append(_capture_window(before, dict(be.CAPTURE_COUNTS)))
         all_x.append(round((n_samples / rate) / elapsed, 1))
         if best is None or elapsed < best:
             best = elapsed
@@ -110,6 +115,15 @@ def _timed_trials(audio, rate, bps, block, batch, packer, trials,
                           bits_per_sample=round(len(data) * 8 / len(audio), 4),
                           **_stage_extras(stats, n_samples, rate)))
     return best, data, stats, all_x
+
+
+def _capture_window(before: dict, after: dict) -> dict:
+    """Graph captures of the process on a dispatch lane and on a capture
+    thread before and after a timed window, and their seconds inside it."""
+    return {"lane": [before["lane"], after["lane"]],
+            "background": [before["background"], after["background"]],
+            "lane_s": after["lane_s"] - before["lane_s"],
+            "background_s": after["background_s"] - before["background_s"]}
 
 
 def _median(xs):
@@ -196,9 +210,10 @@ def main_worker(device) -> tuple:
     audio = make_audio(seconds, rate)
     extra_base = {"seconds_encoded": seconds, "batch": batch, "packer": packer,
                   "card": card_line(device)}
+    captures = []
     best, data, stats, all_x = _timed_trials(
         audio, rate, bps, block, batch, packer, trials, trial_gap,
-        emit_partial=True, extra_base=extra_base, device=device,
+        emit_partial=True, extra_base=extra_base, device=device, captures=captures,
     )
 
     n_samples = len(audio) // 2
@@ -207,6 +222,7 @@ def main_worker(device) -> tuple:
     stage = _stage_extras(stats, n_samples, rate)
     stage["trials_x_realtime"] = all_x
     stage["median_x_realtime"] = _median(all_x)
+    stage["trials_captures"] = captures
 
     # same-corpus reference proxy: strict mode reproduces the reference
     # stable build's float semantics byte for byte for this config

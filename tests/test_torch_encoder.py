@@ -252,9 +252,11 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
     assert stats["batches"] == -(-full // min(batch_size, max(8, full)))
     assert set(stats) == {"read_s", "submit_s", "device_wait_s", "pack_s",
                           "batches", "frames", "wall_s", "wire_batches", "grouped_batches",
-                          "captures", "capture_s", "link_mbps", "max_inflight"}
+                          "captures", "capture_s", "captures_background",
+                          "capture_background_s", "link_mbps", "max_inflight"}
     assert stats["wire_batches"] == ({"None": stats["batches"]} if stats["batches"] else {})
-    assert (stats["grouped_batches"], stats["captures"]) == (0, 0)  # eager on the CPU
+    assert (stats["grouped_batches"], stats["captures"], stats["captures_background"]) == (
+        0, 0, 0)  # eager on the CPU
 
 
 def test_stream_mono_24bit_per_block_source_matches_oracle():

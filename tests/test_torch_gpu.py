@@ -9,6 +9,11 @@ The dispatch lane (the runner's default issue path) against
 FLACENC_INLINE_DISPATCH on every wire and G=4, a capture on the lane beside
 other threads' CUDA calls, and two runners sharing one program.
 
+The background warm: a capture on the capture thread while another
+runner's lane replays graphs of the same memory pool, pins host memory and
+waits on events, a check replay that holds the pool against older graphs,
+and `wait_all_warms` while a capture is open.
+
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -202,11 +207,17 @@ def test_mesh_of_replicas_on_one_card(cuda):
     cfg = config.Encoder().into_verified()
     m = mesh.block_mesh([cuda, cuda])
     before, forwards = rice_tables.launches(), tbe.PROGRAM_COUNTS["forwards"]
+    lane, background = tbe.CAPTURE_COUNTS["lane"], tbe.CAPTURE_COUNTS["background"]
     got = flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=m).to_bytes()
+    tbe.wait_all_warms()
     forwards = tbe.PROGRAM_COUNTS["forwards"] - forwards
+    lane = tbe.CAPTURE_COUNTS["lane"] - lane
+    background = tbe.CAPTURE_COUNTS["background"] - background
     # 3 batches x 2 shards, plus each replica's capture warm-up on a new key
-    assert forwards in (3 * 2, 3 * 2 + 2)
+    # (a lane capture's first replay is its batch's forward) and the warm-up
+    # and first replay of each capture on the capture thread (the racer's wires)
+    assert lane <= 2 and forwards == 3 * 2 + lane + 2 * background
     assert rice_tables.launches() - before == 2 * forwards  # 2 per forward
     assert got == flacenc_tpu_torch.encode_with_fixed_block_size(
         cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4, device="cuda", mesh=None).to_bytes()
@@ -264,6 +275,10 @@ def test_wires_groups_and_graphs_on_card(cuda, up, group, strict, monkeypatch):
     cfg = config.Encoder().into_verified()
     for x in (_stereo(13 * 2048 + 77), _walk(13 * 2048 + 5)):
         kw = dict(batch_size=2, device="cuda", strict_lpc=strict)
+        if group != "1":  # the grouped program warms on the capture thread: warm it first
+            flacenc_tpu_torch.encode_with_fixed_block_size(
+                cfg, MemSource(x, 2, 16, 44100), 2048, upload_pack=up, **kw)
+            tbe.wait_all_warms()
         stats = {}
         got = flacenc_tpu_torch.encode_with_fixed_block_size(
             cfg, MemSource(x, 2, 16, 44100), 2048, upload_pack=up, stats=stats, **kw).to_bytes()
@@ -274,6 +289,7 @@ def test_wires_groups_and_graphs_on_card(cuda, up, group, strict, monkeypatch):
         assert got == raw, stats["wire_batches"]
         if group != "1":
             assert stats["grouped_batches"] == stats["batches"]
+    tbe.wait_all_warms()
     progs = [p for p in tbe._PROGRAMS.values() if p.capture]
     assert progs and all(p.checked for p in progs)
     with torch.inference_mode():
@@ -334,6 +350,9 @@ def test_lane_equals_inline_on_card(cuda, up, group, monkeypatch):
     and on the caller's thread (FLACENC_INLINE_DISPATCH)."""
     monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
     for x in (_stereo(13 * 2048 + 77), _walk(13 * 2048 + 5)):
+        if group != "1":  # the grouped program warms on the capture thread: warm it first
+            _encode_bytes(x, upload_pack=up)
+            tbe.wait_all_warms()
         stats = {}
         lane, inline = _lane_and_inline(x, monkeypatch, upload_pack=up, stats=stats)
         assert lane == inline
@@ -433,3 +452,180 @@ def test_two_runners_in_two_threads_share_a_program(cuda, monkeypatch):
     assert not any(t.is_alive() for t in threads) and not errors, errors
     assert got == [[want[0]] * 3, [want[1]] * 3]
     assert len(tbe._PROGRAMS) == keys  # no key was added: both ran the shared program
+
+
+def _held_background_capture(monkeypatch):
+    """Hold the first capture on a capture thread open, mid-forward, until
+    the returned `release` event is set; `capturing` is set once it is."""
+    import threading
+
+    capturing, release = threading.Event(), threading.Event()
+    forward = tbe.BatchEncoder.forward
+
+    def held_forward(self, *inputs):
+        if (torch.cuda.is_current_stream_capturing() and not capturing.is_set()
+                and threading.current_thread().name.startswith("flacenc-capture")):
+            capturing.set()
+            release.wait(120)
+        return forward(self, *inputs)
+
+    monkeypatch.setattr(tbe.BatchEncoder, "forward", held_forward)
+    return capturing, release
+
+
+def test_background_capture_beside_replays_of_the_same_pool(cuda, monkeypatch):
+    """A racer's wire is captured on the capture thread, held open mid-
+    capture, while a second runner in another thread encodes three times
+    on raw: its lane replays a graph from the same memory pool (one card,
+    no mesh), pins its uploads and waits on its download events meanwhile.
+    Both streams equal their encodes alone, and the raw program was the
+    only capture on a lane."""
+    import threading
+
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    monkeypatch.delenv("FLACENC_FETCH_GROUP", raising=False)
+    xs = [_walk(11 * 2048 + 3), _stereo(11 * 2048 + 3)]
+    want = [_encode_bytes(x, upload_pack=False) for x in xs]  # raw: captured, replayed
+    monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)(
+        (k, p) for k, p in tbe._PROGRAMS.items() if p.key[6] is None))  # wires fresh
+    capturing, release = _held_background_capture(monkeypatch)
+    got, errors = [], []
+
+    def beside():
+        try:
+            assert capturing.wait(120)
+            got.extend(_encode_bytes(xs[1], upload_pack=False) for _ in range(3))
+        except BaseException as e:  # noqa: BLE001 - reported by the test thread
+            errors.append(e)
+        finally:
+            release.set()
+
+    lane = tbe.CAPTURE_COUNTS["lane"]
+    helper = threading.Thread(target=beside)
+    helper.start()
+    racer = _encode_bytes(xs[0], upload_pack="auto")
+    helper.join(300)
+    failed = tbe.wait_all_warms()
+    assert not helper.is_alive() and not errors, errors
+    assert racer == want[0] and got == [want[1]] * 3
+    assert capturing.is_set() and tbe.CAPTURE_COUNTS["lane"] == lane  # raw was warm
+    assert not failed, failed
+
+
+def test_check_replay_holds_the_pool_against_older_graphs(cuda, monkeypatch):
+    """A background capture's check replay and its read of the outputs
+    hold the pool lock: a graph captured later may keep its outputs in the
+    blocks an older graph of the same pool uses for its intermediates, so
+    no lane may replay the older graph (the raw program) in between. The
+    check is held open for 1 s after its replay while a second runner
+    starts encoding raw on another thread: every raw replay after the
+    check began comes after it, every check passes, and both streams
+    equal their encodes alone."""
+    import threading
+    import time
+
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    monkeypatch.delenv("FLACENC_FETCH_GROUP", raising=False)
+    xs = [_walk(11 * 2048 + 3), _stereo(11 * 2048 + 3)]
+    want = [_encode_bytes(x, upload_pack=False) for x in xs]  # raw: captured, replayed
+    monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)(
+        (k, p) for k, p in tbe._PROGRAMS.items() if p.key[6] is None))  # wires fresh
+    in_check, order = threading.Event(), []
+    equal, call = tbe._outputs_equal, tbe.Program.__call__
+
+    def held_equal(a, b):
+        if threading.current_thread().name.startswith("flacenc-capture") \
+                and not in_check.is_set():
+            in_check.set()
+            time.sleep(1.0)  # the second runner's lane tries to replay meanwhile
+            order.append("check")
+        return equal(a, b)
+
+    def spy(self, *inputs):
+        if in_check.is_set() and self.key[6] is None:
+            order.append("raw replay")
+        return call(self, *inputs)
+
+    monkeypatch.setattr(tbe, "_outputs_equal", held_equal)
+    monkeypatch.setattr(tbe.Program, "__call__", spy)
+    got, errors = [], []
+
+    def beside():
+        try:
+            assert in_check.wait(120)
+            got.extend(_encode_bytes(xs[1], upload_pack=False) for _ in range(2))
+        except BaseException as e:  # noqa: BLE001 - reported by the test thread
+            errors.append(e)
+
+    helper = threading.Thread(target=beside)
+    helper.start()
+    racer = _encode_bytes(xs[0], upload_pack="auto")
+    helper.join(300)
+    failed = tbe.wait_all_warms()
+    assert not helper.is_alive() and not errors, errors
+    assert not failed, failed
+    assert order[0] == "check" and "raw replay" in order, order
+    assert racer == want[0] and got == [want[1]] * 2
+    assert all(p.checked for p in tbe._PROGRAMS.values() if p.capture and p.graph is not None)
+
+
+def test_background_capture_beside_pins_and_waits(cuda, monkeypatch):
+    """While a capture is held open on the capture thread, this thread
+    pins a host buffer no earlier allocation could serve, copies into it
+    on a stream of its own and waits on an event: the capture's
+    "thread_local" error mode lets both run, and the capture completes."""
+    monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)())
+    capturing, release = _held_background_capture(monkeypatch)
+    shapes = (((2, 2, 2048), "torch.int16"),)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    prog = tbe.program_for(config.Encoder(), 2, 16, 2048, False, "native2", None, shapes, dev)
+    ready, queued = prog.warm(lambda: [torch.zeros((2, 2, 2048), dtype=torch.int16)])
+    try:
+        assert queued == [prog] and capturing.wait(120)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            src = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+            host = torch.empty((1 << 26) + 4099, dtype=torch.int32, pin_memory=True)
+            host[: 1 << 20].copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
+        event.synchronize()
+        assert int(host[(1 << 20) - 1]) == (1 << 20) - 1
+    finally:
+        release.set()
+    ready.result(timeout=120)
+    assert prog.captured_by == "background" and prog.checked
+    assert prog.first_run.startswith("flacenc-capture")
+
+
+def test_wait_all_warms_during_an_open_capture(cuda, monkeypatch):
+    """`wait_all_warms(timeout)` while a capture is held open returns after
+    about `timeout`, raises nothing and synchronizes no device; released,
+    the warm finishes and the wire engages with the raw stream's bytes."""
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    monkeypatch.delenv("FLACENC_FETCH_GROUP", raising=False)
+    monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)())
+    x = _walk(11 * 2048 + 3)
+    want = _encode_bytes(x, upload_pack=False)
+    capturing, release = _held_background_capture(monkeypatch)
+    syncs = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a) or sync(*a))
+    runner = tbe.BatchRunner(config.Encoder(), 2, 16, 2048, 2, "cuda", upload_pack="auto")
+    blocks = x[: 2 * 2 * 2048 * 2].reshape(-1, 2048, 2).transpose(0, 2, 1).copy()
+    try:
+        runner.submit(blocks[:2], np.arange(2), 44100)
+        assert capturing.wait(120)
+        import time
+
+        t0 = time.monotonic()
+        tbe.wait_all_warms(timeout=0.5)
+        waited = time.monotonic() - t0
+        assert 0.4 < waited < 5.0 and not syncs, (waited, syncs)
+    finally:
+        release.set()
+        list(runner.drain())
+        runner.close()
+    tbe.wait_all_warms()
+    assert not syncs
+    assert _encode_bytes(x, upload_pack="auto") == want

@@ -35,6 +35,10 @@ def test_grouped_round_trips_equal_jax_same_group_and_raw(group, monkeypatch):
     ungrouped encode."""
     x = _walk(512 * 11 + 77)
     monkeypatch.setenv("FLACENC_FETCH_GROUP", str(group))
+    # the grouped program warms on the capture thread; warm it first, so
+    # that every batch of the encode below groups
+    port_bytes(x, 2, 16, block_size=512, batch_size=1, upload_pack=False)
+    tbe.wait_group_warms()
     try:
         tbytes, tstats, jbytes, _ = encode_pair(x, 2, 16, block_size=512, batch_size=1,
                                                 upload_pack=False)
@@ -58,6 +62,8 @@ def test_grouped_packed_wire_equals_raw(monkeypatch):
     x[0::2] = np.round(15000 * np.sin(2 * np.pi * 180 / 44100 * t))
     x[1::2] = np.round(12000 * np.sin(2 * np.pi * 300 / 44100 * t))
     monkeypatch.setenv("FLACENC_FETCH_GROUP", "2")
+    port_bytes(x, 2, 16, block_size=512, batch_size=1, upload_pack=True)  # warms the group
+    tbe.wait_group_warms()
     stats = {}
     got = port_bytes(x, 2, 16, block_size=512, batch_size=1, upload_pack=True, stats=stats)
     assert stats["grouped_batches"] == 6
@@ -75,6 +81,12 @@ def test_auto_grouping_follows_the_download_wait(monkeypatch):
     runner = tbe.BatchRunner(tconfig.Encoder(), 2, 16, 512, 1, "cpu", upload_pack=False)
     assert runner.fetch_group == 0 and runner._fetch_ewma == 10.0
     blocks = _walk(512 * 9).reshape(-1, 512, 2).transpose(0, 2, 1)
+    # the grouped program warms on the capture thread before batches group:
+    # warm it first
+    shapes = (((4, 1, 2, 512), "torch.int16"),)
+    prog = tbe.program_for(tconfig.Encoder(), 2, 16, 512, False, "native2", None, shapes,
+                           torch.device("cpu"), grouped=4)
+    prog.warm(lambda: [torch.zeros((4, 1, 2, 512), dtype=torch.int16)])[0].result(timeout=60)
     out = []
     for i in range(4):
         out.append(runner.submit(blocks[i:i + 1].copy(), [i], 44100))

@@ -263,7 +263,8 @@ def test_packer_stats_and_frames(packer):
     assert stats["batches"] == 3 and stats["frames"] == 10
     assert set(stats) == {"read_s", "submit_s", "device_wait_s", "pack_s",
                           "batches", "frames", "wall_s", "wire_batches", "grouped_batches",
-                          "captures", "capture_s", "link_mbps", "max_inflight"}
+                          "captures", "capture_s", "captures_background",
+                          "capture_background_s", "link_mbps", "max_inflight"}
     assert stats["wire_batches"] == {"None": 3} and stats["captures"] == 0
     assert np.array_equal(decode_stream(parse_stream(s.to_bytes())), x)
 

@@ -81,11 +81,14 @@ def test_stream_bytes_equal_jax_at_every_depth(depth, variant, monkeypatch):
     monkeypatch.setattr(tconstants.par, "FRAMEBUF_MULTIPLICITY", depth)
     monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
     x = _walk(N) if signal == "walk" else _tones(N)
-    stats = {}
-    got = flacenc_tpu_torch.encode_with_fixed_block_size(
-        tconfig.Encoder(), TMemSource(x, 2, 16, 44100), T, batch_size=2, device="cpu",
-        packer=packer, strict_lpc=strict, upload_pack=upload_pack, stats=stats,
-    ).to_bytes()
+    runs = 2 if group != "1" else 1  # the first of two warms the grouped program
+    for _ in range(runs):
+        stats = {}
+        got = flacenc_tpu_torch.encode_with_fixed_block_size(
+            tconfig.Encoder(), TMemSource(x, 2, 16, 44100), T, batch_size=2, device="cpu",
+            packer=packer, strict_lpc=strict, upload_pack=upload_pack, stats=stats,
+        ).to_bytes()
+        tbe.wait_group_warms()
     assert got == _jax_bytes(signal, strict)
     assert stats["batches"] == 12
     if group == "2":

@@ -336,7 +336,14 @@ def test_racer_flips_mid_stream_change_no_bytes(monkeypatch):
         frames.extend(f for res in r.drain() for f in res.frames)
         return b"".join(f.precomputed_bitstream for f in frames), wires
 
-    data_flip, wires = run(lambda i: {2: "pack", 3: "pack", 4: "d", 5: "d"}.get(i, "raw"))
+    def flips(i):
+        return {2: "pack", 3: "pack", 4: "d", 5: "d"}.get(i, "raw")
+
+    # the racer warms a wire's program on the capture thread and ships on
+    # raw until it is warm: warm every program of the schedule first
+    run(flips)
+    tbe.wait_all_warms()
+    data_flip, wires = run(flips)
     data_raw, wires_raw = run(lambda i: "raw")
     assert wires[2] == "pack" and wires[4] == "d" and wires[0] == wires[7] == "raw"
     assert set(wires_raw) == {"raw"}
