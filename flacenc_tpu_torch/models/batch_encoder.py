@@ -48,7 +48,7 @@ import torch
 from torch import nn
 
 from .. import config as config_mod
-from .. import constants, native
+from .. import constants, native, trace
 from ..component.datatype import (
     BlockSizeSpec,
     ChannelAssignment,
@@ -1580,9 +1580,13 @@ class BatchRunner:
     check and wire pack; under FLACENC_INLINE_DISPATCH also the strict
     arrays, upload and launch), device_wait_s (the caller blocked on the
     lane's issue and a worker's result), pack_s (the workers' assembly
-    seconds), batches and max_inflight; FLACENC_TIMELINE=1 also keeps
-    (event, batch, perf_counter, ...) tuples in `timeline`, from every
-    thread."""
+    seconds), batches and max_inflight. FLACENC_TIMELINE=1 gives the
+    runner a `trace.Tracer` (`tracer`, else None): its point events,
+    (event, batch, perf_counter, ...) tuples from every thread in time
+    order, are `report()`'s `timeline`, and `tracer.report()` hands out
+    `spans` (``lane.queue``, and ``lane.launch`` with its children, on the
+    lane; ``io.wait`` on the workers; see ``trace``) and `trace_clock`
+    (perf_to_unix_ns)."""
 
     def __init__(self, cfg, nch: int, bps: int, block_size: int, batch_size: int,
                  device: str | torch.device = "cuda", strict_lpc: bool = False,
@@ -1640,10 +1644,7 @@ class BatchRunner:
         self.captures = 0  # programs this runner captured (0 when all were cached)
         self.capture_s = 0.0  # wall seconds those captures took, on the issuing thread
         self._report_lock = threading.Lock()  # captures: written by the lane, read by report
-        self.timeline: Optional[list] = [] if os.environ.get("FLACENC_TIMELINE") else None
-        # stamp and append under one lock, so that the list is in time order
-        # across the caller's thread and the io workers
-        self._timeline_lock = threading.Lock()
+        self.tracer: Optional[trace.Tracer] = trace.Tracer() if trace.enabled() else None
         self._seq = 0
 
     # -- upload wires -------------------------------------------------------
@@ -1835,9 +1836,9 @@ class BatchRunner:
     # -- programs and launches ---------------------------------------------
 
     def _mark(self, event: str, idx, *extra) -> None:
-        if self.timeline is not None:
-            with self._timeline_lock:
-                self.timeline.append((event, idx, time.perf_counter()) + extra)
+        tracer = self.tracer
+        if tracer is not None:
+            tracer.mark(event, idx, *extra)
 
     def _program(self, wire, shapes: tuple, grouped: int = 0):
         """The runner's program for inputs of these (shape, dtype) pairs:
@@ -1861,46 +1862,53 @@ class BatchRunner:
             self._programs[key] = prog
         return prog
 
-    def _run(self, wire, arrays, grouped: int = 0):
+    def _run(self, wire, arrays, grouped: int = 0, seq: Optional[int] = None):
         """Upload `arrays` (pinned on a card), run the program (over a mesh
         each replica on its shard) and enqueue every output's download into
         its rows of one host buffer, behind one CUDA event per card. It
         sets the thread's inference mode, device and stream itself, and
         holds every program's lock, then every program's pool lock, from
-        its call to the event's record. Returns (host outputs, events,
-        uploaded inputs)."""
+        its call to the event's record. Traced, its parts are the spans
+        ``lane.launch.pin``, ``.lock_wait``, ``.replay`` (none for a first
+        run that captures) and ``.download`` of batch `seq`. Returns (host
+        outputs, events, uploaded inputs)."""
+        tracer = self.tracer
         inputs = _host_tensors(arrays)
         with torch.inference_mode(), _on_card(self.dev), contextlib.ExitStack() as held:
             if self.on_cuda:
-                inputs = [x.pin_memory() for x in inputs]
+                with trace.span(tracer, "lane.launch.pin", seq):
+                    inputs = [x.pin_memory() for x in inputs]
             prog = self._program(wire, _input_shapes(inputs), grouped)
             sharded = isinstance(prog, pmesh.ShardedEncoder)
             progs = prog.replicas if sharded else [prog]
-            for p in progs:  # in mesh order, so two runners never hold them crosswise
-                held.enter_context(p.lock)
-            for p in progs:
-                held.enter_context(p.pool_lock)
+            with trace.span(tracer, "lane.launch.lock_wait", seq):
+                for p in progs:  # in mesh order, so two runners never hold them crosswise
+                    held.enter_context(p.lock)
+                for p in progs:
+                    held.enter_context(p.pool_lock)
             fresh = [p for p in progs if p.capture and p.graph is None]
-            shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
+            with trace.span(None if fresh else tracer, "lane.launch.replay", seq):
+                shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
             with self._report_lock:
                 self.captures += len(fresh)
                 self.capture_s += sum(p.capture_s for p in fresh)
             outs = [(sl, (out,) if isinstance(out, torch.Tensor) else tuple(out))
                     for sl, out in shards]
             rows = inputs[0].shape[0]
-            host = [
-                torch.empty((rows,) + o.shape[1:], dtype=o.dtype, pin_memory=self.on_cuda)
-                for o in outs[0][1]
-            ]
-            done = {}
-            for sl, out in outs:
-                dev = out[0].device
-                with _on_card(dev):
-                    for h, o in zip(host, out):
-                        h[sl].copy_(o, non_blocking=self.on_cuda)
-                    if dev.type == "cuda":
-                        done[dev] = torch.cuda.Event()
-                        done[dev].record(torch.cuda.default_stream(dev))
+            with trace.span(tracer, "lane.launch.download", seq):
+                host = [
+                    torch.empty((rows,) + o.shape[1:], dtype=o.dtype, pin_memory=self.on_cuda)
+                    for o in outs[0][1]
+                ]
+                done = {}
+                for sl, out in outs:
+                    dev = out[0].device
+                    with _on_card(dev):
+                        for h, o in zip(host, out):
+                            h[sl].copy_(o, non_blocking=self.on_cuda)
+                        if dev.type == "cuda":
+                            done[dev] = torch.cuda.Event()
+                            done[dev].record(torch.cuda.default_stream(dev))
         return host, list(done.values()), inputs
 
     def _issue(self, task, *args) -> concurrent.futures.Future:
@@ -1910,6 +1918,8 @@ class BatchRunner:
         the lane has finished what it holds, and the future returned is
         already done."""
         if not os.environ.get("FLACENC_INLINE_DISPATCH"):
+            if self.tracer is not None:
+                task, args = self._after_queue, (task, time.perf_counter_ns()) + args
             self._lane_tail = self._lane.submit(task, *args)
             return self._lane_tail
         if self._lane_tail is not None:  # switched on mid-stream: keep the launch order
@@ -1920,30 +1930,47 @@ class BatchRunner:
         done.set_result(None)
         return done
 
+    def _after_queue(self, task, queued_ns: int, item) -> None:
+        """Dispatch lane, traced: the ``lane.queue`` span of `item` (a
+        batch, or a group's batches) from its hand-off to now, then
+        `task`."""
+        self.tracer.record("lane.queue", item.seq if isinstance(item, _Batch) else item[0].seq,
+                           queued_ns)
+        task(item)
+
     def _launch(self, batch: _Batch) -> None:
         """Upload and run one batch, enqueue its downloads, and hand the
         wait and the pack to a worker (the JAX package's ``_updf_plain``
         and, when strict, ``_upload_dispatch_fetch``). The strict host
-        arrays are computed here, before the upload they ride in."""
-        arrays = batch.payload
-        if self.strict_window is not None:
-            chunk = _bucket_pad(batch.blocks, self.batch_size)
-            arrays = arrays + _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps,
-                                                 self.strict_window)
-        batch.outputs, batch.done, batch.inputs = self._run(batch.wire, arrays)
-        self._mark("issued", batch.seq)
-        batch.future = self._pool.submit(self._fetch_assemble, [batch])
+        arrays are computed here, before the upload they ride in. Traced,
+        the whole task is the ``lane.launch`` span, with the lane thread's
+        CPU time, and the `issued` mark and the hand-off to a worker its
+        ``.handoff`` child."""
+        with trace.span(self.tracer, "lane.launch", batch.seq, cpu=True):
+            arrays = batch.payload
+            if self.strict_window is not None:
+                chunk = _bucket_pad(batch.blocks, self.batch_size)
+                arrays = arrays + _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps,
+                                                     self.strict_window)
+            batch.outputs, batch.done, batch.inputs = self._run(batch.wire, arrays,
+                                                                seq=batch.seq)
+            with trace.span(self.tracer, "lane.launch.handoff", batch.seq):
+                self._mark("issued", batch.seq)
+                batch.future = self._pool.submit(self._fetch_assemble, [batch])
 
     def _fetch_assemble(self, entries: List[_Batch]):
         """io worker: wait for the entries' downloads (one batch, or a
         grouped round trip's batches, which share their events), then pack
-        each. Returns [(frames, pack seconds)] in entry order."""
+        each. Returns [(frames, pack seconds)] in entry order. Traced, the
+        wait is one ``io.wait`` span for the entries, with the worker
+        thread's CPU time."""
         grouped = len(entries) > 1
         first = entries[0].seq
         if not grouped:
             self._mark("fetch_start", first)
-        for event in entries[0].done:
-            event.synchronize()
+        with trace.span(self.tracer, "io.wait", first, cpu=True):
+            for event in entries[0].done:
+                event.synchronize()
         if grouped:
             self._mark("gfetch_done", first, len(entries))
         else:
@@ -2014,12 +2041,16 @@ class BatchRunner:
         change) goes batch by batch with the per-batch program."""
         self._mark("gtrip_start", entries[0].seq, len(entries))
         if len(entries) == (self.fetch_group or _FETCH_GROUP_AUTO):
-            stacked = [np.stack([e.payload[i] for e in entries])
-                       for i in range(len(entries[0].payload))]
-            (host,), done, inputs = self._run(entries[0].wire, stacked, grouped=len(entries))
-            for g, e in enumerate(entries):
-                e.outputs, e.done, e.inputs, e.slot = (host[g],), done, inputs, g
-            future = self._pool.submit(self._fetch_assemble, entries)
+            first = entries[0].seq
+            with trace.span(self.tracer, "lane.launch", first, cpu=True):
+                stacked = [np.stack([e.payload[i] for e in entries])
+                           for i in range(len(entries[0].payload))]
+                (host,), done, inputs = self._run(entries[0].wire, stacked,
+                                                  grouped=len(entries), seq=first)
+                for g, e in enumerate(entries):
+                    e.outputs, e.done, e.inputs, e.slot = (host[g],), done, inputs, g
+                with trace.span(self.tracer, "lane.launch.handoff", first):
+                    future = self._pool.submit(self._fetch_assemble, entries)
             for e in entries:
                 e.future = future
         else:
@@ -2062,7 +2093,6 @@ class BatchRunner:
         g = self._group_target(wire, payload)
         if g > 1:
             self._group_open.append(batch)
-            self._mark("parked", seq)
             if len(self._group_open) >= g:
                 self._flush_group()
         else:
@@ -2164,8 +2194,8 @@ class BatchRunner:
             "capture_background_s": sum((p.capture_s for p in background), 0.0),
             "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
         }
-        if self.timeline is not None:
-            out["timeline"] = list(self.timeline)
+        if self.tracer is not None:
+            out["timeline"] = list(self.tracer.points)
         return out
 
 
@@ -2231,8 +2261,14 @@ def encode_with_fixed_block_size(
     the runner's wire_batches (batches per upload wire), grouped_batches,
     captures and capture_s (CUDA graphs this encode captured on its lane,
     and their seconds), captures_background and capture_background_s (those
-    its warms captured on a capture thread) and link_mbps, plus
-    timeline with FLACENC_TIMELINE=1. A JSON line of the run's counts is
+    its warms captured on a capture thread) and link_mbps. With
+    FLACENC_TIMELINE=1 also timeline (the runner's stage marks), spans
+    (this call's, as dicts: name, call, seq, thread, start_ns and end_ns
+    on `perf_counter_ns`, cpu_ns of the thread where kept, parent, id; the
+    runner's, plus ``call.setup``, ``call.close``, ``call.tail`` and
+    ``call.assemble`` here) and trace_clock (perf_to_unix_ns: add it to a
+    span's stamps to read them on `torch.profiler`'s clock). A JSON line of
+    the run's counts is
     logged at INFO (``FLACENC_LOG=info``)."""
     cfg = config.inner if isinstance(config, Verified) else config
     strict_lpc = resolve_strict(strict_lpc, cfg)
@@ -2253,10 +2289,14 @@ def encode_with_fixed_block_size(
                 # a split batch stays a positive multiple of the mesh size
                 cand = -(-max(cand, n_dev) // n_dev) * n_dev
             batch_size = min(batch_size, cand)
+    setup_ns = time.perf_counter_ns() if trace.enabled() else None
     runner = BatchRunner(cfg, nch, bps, block_size, batch_size, device, strict_lpc,
                          packer=packer, mesh=mesh, upload_pack=upload_pack)
     # MD5 on a worker thread behind a bounded queue (par.rs:196-277)
     context = AsyncContext(bps, nch)
+    tracer = runner.tracer
+    if tracer is not None and setup_ns is not None:
+        tracer.record("call.setup", None, setup_ns)
 
     frames: List[Frame] = []
     read_s = 0.0
@@ -2307,30 +2347,35 @@ def encode_with_fixed_block_size(
         for result in runner.drain():
             frames.extend(result.frames)
     finally:
-        runner.close()
-        context.shutdown()  # join the MD5 worker (no-op if already done)
+        with trace.span(tracer, "call.close"):
+            runner.close()
+            context.shutdown()  # join the MD5 worker (no-op if already done)
 
     if tail is not None:
-        fb = FrameBuf(nch, tail.shape[1])
-        fb.fill_interleaved(np.ascontiguousarray(tail.T).reshape(-1))
-        frames.append(reference_encoder.encode_fixed_size_frame(
-            cfg, fb, len(frames), stream.stream_info(), strict_lpc=strict_lpc
-        ))
+        with trace.span(tracer, "call.tail"):
+            fb = FrameBuf(nch, tail.shape[1])
+            fb.fill_interleaved(np.ascontiguousarray(tail.T).reshape(-1))
+            frames.append(reference_encoder.encode_fixed_size_frame(
+                cfg, fb, len(frames), stream.stream_info(), strict_lpc=strict_lpc
+            ))
 
-    for frame in frames:
-        stream.add_frame(frame)
-    if stream.frame_count() > 0:
-        mx = stream.stream_info().max_block_size
-        stream.stream_info_mut().set_block_sizes(mx, mx)
-    stream.stream_info_mut().set_md5_digest(context.md5_digest())
-    total = src.len_hint()
-    stream.stream_info_mut().set_total_samples(
-        total if total is not None else context.total_samples()
-    )
-    report = runner.report()
+    with trace.span(tracer, "call.assemble"):
+        for frame in frames:
+            stream.add_frame(frame)
+        if stream.frame_count() > 0:
+            mx = stream.stream_info().max_block_size
+            stream.stream_info_mut().set_block_sizes(mx, mx)
+        stream.stream_info_mut().set_md5_digest(context.md5_digest())
+        total = src.len_hint()
+        stream.stream_info_mut().set_total_samples(
+            total if total is not None else context.total_samples()
+        )
+        report = runner.report()
     if stats is not None:
         stats.update(wall_s=time.perf_counter() - t_start, frames=len(frames),
                      read_s=read_s, **runner.stats, **report)
+        if tracer is not None:
+            stats.update(tracer.report())
     # the stream path's run counts (the par-mode JSONL line, par.rs:414-421)
     info_stats(
         event="stream_encode", frames=len(frames), batches=runner.stats["batches"],

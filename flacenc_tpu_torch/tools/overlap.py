@@ -19,7 +19,14 @@ reconstructs from each run's event stamps where the wall went:
   `gtrip_start` to `gissued`; under the kill switch the same spans on the
   caller's thread, inside "other"), per-batch fetch walls (fetch_start ->
   fetch_done: the wait for the downloads) and grouped round trips
-  (gtrip_start -> gasm_done).
+  (gtrip_start -> gasm_done);
+- from the encode's spans (``stats["spans"]``, `lane_seconds`): the lane's
+  measured seconds, `lane_s` (its ``lane.launch`` spans, stamped by the
+  lane as each task starts and ends), and `lane_queue_s` (its
+  ``lane.queue`` spans: tasks handed to the lane and not yet started).
+  Trust `lane_s` for the lane's work: `issue_s` is rebuilt from marks the
+  lane does not stamp at a task's start, so it also takes in the lane's
+  pickup delay, and `issue_s - lane_s` is at most about `lane_queue_s`.
 
 Prints one JSON line per trial and one with the best trial, and with
 ``--out`` a markdown table:
@@ -141,6 +148,16 @@ def _issue_spans(ev) -> dict:
     return {"issue_s": round(busy, 3), "n_issues": len(spans)}
 
 
+def lane_seconds(spans) -> dict:
+    """`lane_s` and `lane_queue_s` from an encode's spans (see the module
+    docstring)."""
+    def total(name):
+        return round(sum(s["end_ns"] - s["start_ns"] for s in spans if s["name"] == name) / 1e9,
+                     3)
+
+    return {"lane_s": total("lane.launch"), "lane_queue_s": total("lane.queue")}
+
+
 def _markdown(args, results) -> str:
     lines = [
         "# Pipeline stage overlap (flacenc_tpu_torch.tools.overlap)",
@@ -149,19 +166,20 @@ def _markdown(args, results) -> str:
         f"{args.batch}, fetch group {os.environ.get('FLACENC_FETCH_GROUP')}, device "
         f"{results[0]['device']}, batches split over {results[0]['mesh']} device(s) "
         f"({'; '.join(results[0]['mesh_cards'])}). The wall is partitioned into the "
-        "caller's thread's classes; the issue (the dispatch lane's busy seconds) and the "
-        "io-worker walls overlap them and are listed for attribution.",
+        "caller's thread's classes; the issue (the dispatch lane's busy seconds, rebuilt "
+        "from the marks), the lane's own spans (lane: its tasks; lane queue: their waits "
+        "to start) and the io-worker walls overlap them and are listed for attribution.",
         "",
         "| trial | wall s | x-rt | read | submit cpu | drain blocked | other | issue "
-        "| fetch mean | gtrip mean | link MB/s |",
-        "|---|---|---|---|---|---|---|---|---|---|---|",
+        "| lane | lane queue | fetch mean | gtrip mean | link MB/s |",
+        "|---|---|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for i, r in enumerate(results):
         lines.append(
             f"| {i} | {r['wall_s']} | {r['x_realtime']} | {r['read_s']} | "
             f"{r['submit_cpu_s']} | {r['drain_blocked_s']} | {r['other_s']} | "
-            f"{r['issue_s']} | {r['fetch_wall_mean_s']} | {r['gtrip_wall_mean_s']} | "
-            f"{r['link_mbps']} |"
+            f"{r['issue_s']} | {r.get('lane_s')} | {r.get('lane_queue_s')} | "
+            f"{r['fetch_wall_mean_s']} | {r['gtrip_wall_mean_s']} | {r['link_mbps']} |"
         )
     return "\n".join(lines) + "\n"
 
@@ -215,6 +233,8 @@ def main(argv=None) -> int:
             encode(audio, stats)
             wall = time.perf_counter() - t0
             sub = analyze(stats.get("timeline", []), wall)
+            if "spans" in stats:
+                sub.update(lane_seconds(stats["spans"]))
             wires = stats.get("wire_batches") or {}
             sub.update(
                 wall_s=round(wall, 3),

@@ -37,6 +37,14 @@ N = T * 23 + 77  # 12 batches of 2 at block 512, the last one padded, and a tail
 DEPTHS = [1, 2, 4, 8]
 
 
+@pytest.fixture(autouse=True)
+def _fresh_fetch_ewma(monkeypatch):
+    """Each test's runners start without the process-wide fetch-wait seed:
+    a seed left by slow CPU waits in an earlier test would switch a runner
+    to grouped round trips."""
+    monkeypatch.setattr(tbe, "_LAST_FETCH_EWMA", None)
+
+
 def _walk(n: int, seed: int = 3) -> np.ndarray:
     """Stereo random walks of small steps: `try_pack` takes the rice wire."""
     rng = np.random.default_rng(seed)
