@@ -168,20 +168,23 @@ def coalesce_encoded_small(enc: DeviceEncoded) -> torch.Tensor:
 
 
 def split_encoded(wire: np.ndarray, errors: np.ndarray, nchannels: int) -> DeviceEncoded:
-    """Host-side inverse of the (`coalesce_encoded_small`, errors) pair."""
+    """Host-side inverse of the (`coalesce_encoded_small`, errors) pair.
+    Every field is a copy: the inputs may be staging slots that go back to
+    their pool after the assembly."""
     C = nchannels
     dec = split_decisions(wire[:, :-C], C)
     return DeviceEncoded(
         assign=dec.assign, sf_type=dec.sf_type, order=dec.order,
         qcoefs=dec.qcoefs, shift=dec.shift, rice_order=dec.rice_order,
         rice_params=dec.rice_params, sf_bits=dec.sf_bits,
-        errors=np.asarray(errors),
+        errors=np.array(errors, order="C"),
         fits16=np.ascontiguousarray(wire[:, -C:]).astype(bool),
     )
 
 
 def split_decisions(arr: np.ndarray, nchannels: int) -> DeviceDecisions:
-    """Host-side inverse of `coalesce_decisions` on a numpy (B, F) array."""
+    """Host-side inverse of `coalesce_decisions` on a numpy (B, F) array.
+    Every field is a C-contiguous copy, never a view of `arr`."""
     B, F = arr.shape
     C = nchannels
     q = constants.qlpc.MAX_ORDER
@@ -201,14 +204,14 @@ def split_decisions(arr: np.ndarray, nchannels: int) -> DeviceDecisions:
     o += C * q
     rice_params = arr[:, o:].reshape(B, C, P)
     return DeviceDecisions(
-        assign=np.ascontiguousarray(arr[:, 0]),
-        sf_type=np.ascontiguousarray(sf_type),
-        order=np.ascontiguousarray(order),
-        qcoefs=np.ascontiguousarray(qcoefs),
-        shift=np.ascontiguousarray(shift),
-        rice_order=np.ascontiguousarray(rice_order),
-        rice_params=np.ascontiguousarray(rice_params),
-        sf_bits=np.ascontiguousarray(sf_bits).astype(np.int64),
+        assign=np.array(arr[:, 0], order="C"),
+        sf_type=np.array(sf_type, order="C"),
+        order=np.array(order, order="C"),
+        qcoefs=np.array(qcoefs, order="C"),
+        shift=np.array(shift, order="C"),
+        rice_order=np.array(rice_order, order="C"),
+        rice_params=np.array(rice_params, order="C"),
+        sf_bits=np.array(sf_bits, dtype=np.int64, order="C"),
     )
 
 
@@ -768,10 +771,14 @@ def _kind(wire) -> str:
     return "raw" if wire is None else ("d" if wire[0] == "d" else "pack")
 
 
+def _program_array(a: np.ndarray) -> np.ndarray:
+    """A host array as a program takes it: uint32 words viewed as int32."""
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
 def _host_tensors(arrays) -> List[torch.Tensor]:
     """Host arrays as the CPU tensors a program takes (uint32 words as int32)."""
-    return [torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a))
-            for a in arrays]
+    return [torch.from_numpy(np.ascontiguousarray(_program_array(a))) for a in arrays]
 
 
 def _input_shapes(tensors) -> tuple:
@@ -1374,6 +1381,121 @@ def _build_module(cfg, nch, bps, block_size, strict_lpc, wire, packer, grouped, 
     ).to(device)
 
 
+# ---------------------------------------------------------------------------
+# Pinned staging: host buffers the dispatch lanes upload from and download
+# into, kept for the process
+# ---------------------------------------------------------------------------
+
+_STAGING_KEYS = _PROGRAM_CACHE_SIZE  # keys kept, least recently used dropped first
+
+
+class _Slot:
+    """One kept host buffer: `held` from its acquisition to its release;
+    released, it is free once every one of `events` has completed."""
+
+    __slots__ = ("key", "tensor", "events", "held")
+
+    def __init__(self, key: tuple, tensor: torch.Tensor):
+        self.key = key
+        self.tensor = tensor
+        self.events: tuple = ()
+        self.held = True
+
+
+class StagingPool:
+    """Host buffers, pinned for a card, kept across batches, runners and
+    calls, keyed by (device, shape, dtype): the uploads a dispatch lane
+    fills with one copy from its host arrays, and the buffers it downloads a
+    batch's outputs into. A `BatchRunner` is built and closed every call of
+    `encode_with_fixed_block_size`, so the buffers outlive it, as the graph
+    pools do.
+
+    `acquire` hands out a released slot whose events have all completed
+    ("reused"); with none, a new one while the key holds fewer than `cap`
+    ("allocated"), or a new one past `cap` when every slot of the key is
+    held; else it waits on the events of the slot released first
+    ("waited"). `release` gives a slot back with the events that end its
+    last use: an upload's, recorded on each card's default stream after
+    the copies that read it; none for a download whose events its reader
+    has waited on. An event is anything with `query()` and
+    `synchronize()`. Keys beyond `_STAGING_KEYS` drop the least recently
+    used key none of whose slots is held (the allocator keeps a dropped
+    buffer's memory until the copies recorded on it have completed). One
+    lock of its own guards the table; waits happen outside it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._slots: "collections.OrderedDict[tuple, List[_Slot]]" = collections.OrderedDict()
+
+    def acquire(self, device: torch.device, shape: tuple, dtype: torch.dtype,
+                cap: int) -> tuple:
+        """(slot, "reused" | "allocated" | "waited") of a held slot."""
+        key = (str(device), tuple(shape), dtype)
+        with self._lock:
+            slots = self._slots.setdefault(key, [])
+            self._slots.move_to_end(key)
+            idle = [s for s in slots if not s.held]
+            slot = next((s for s in idle if all(e.query() for e in s.events)), None)
+            how = "reused"
+            if slot is None and (len(slots) < cap or not idle):
+                slot = _Slot(key, torch.empty(shape, dtype=dtype,
+                                              pin_memory=torch.device(device).type == "cuda"))
+                slots.append(slot)
+                how = "allocated"
+                self._evict()
+            elif slot is None:
+                slot, how = idle[0], "waited"
+            slot.held = True
+            events, slot.events = slot.events, ()
+        if how == "waited":
+            for event in events:
+                event.synchronize()
+        return slot, how
+
+    def release(self, slot: _Slot, events=()) -> None:
+        with self._lock:
+            slot.events = tuple(events)
+            slot.held = False
+            slots = self._slots.get(slot.key)
+            if slots is not None:  # the oldest release first
+                slots.remove(slot)
+                slots.append(slot)
+
+    def _evict(self) -> None:
+        while len(self._slots) > _STAGING_KEYS:
+            old = next((k for k, v in self._slots.items() if not any(s.held for s in v)), None)
+            if old is None:
+                return
+            del self._slots[old]
+
+
+_STAGING = StagingPool()
+
+
+def _recorded(dev: torch.device) -> torch.cuda.Event:
+    """A CUDA event recorded on the card's default stream now."""
+    event = torch.cuda.Event()
+    event.record(torch.cuda.default_stream(dev))
+    return event
+
+
+def _fill(slot: torch.Tensor, a: np.ndarray) -> None:
+    """Copy `a` into the host tensor `slot` of its shape and dtype: a
+    C-contiguous array by a memoryview assignment, one memcpy that keeps
+    the interpreter lock (a copy that lets it go, as numpy's and ATen's do,
+    then waits to get it back from the threads that keep it busy, up to a
+    switch interval), a strided or empty one by `np.copyto`."""
+    if a.flags.c_contiguous and a.size:
+        memoryview(slot.numpy()).cast("B")[:] = memoryview(a).cast("B")
+    else:
+        np.copyto(slot.numpy(), a)
+
+
+@functools.lru_cache(maxsize=None)
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
 # outstanding warm futures, as in the JAX package: of the per-batch wire
 # programs (`BatchRunner._start_warm`) and of the grouped programs
 # (`_warm_group`); a caller blocks on them after a warm-up encode with
@@ -1455,7 +1577,7 @@ class _Batch:
     of its outputs."""
 
     __slots__ = ("blocks", "nums", "rate", "cookie", "payload", "wire", "kind", "nbytes",
-                 "seq", "outputs", "inputs", "done", "group", "issue", "future", "slot")
+                 "seq", "outputs", "staged", "done", "group", "issue", "future", "slot")
 
     def __init__(self, blocks, nums, rate, cookie, payload, wire, kind, nbytes, seq):
         self.blocks = blocks    # (n, C, T) real (unpadded) blocks
@@ -1468,7 +1590,7 @@ class _Batch:
         self.nbytes = nbytes    # upload bytes
         self.seq = seq          # submit sequence number (timeline id)
         self.outputs = None     # output tensors on the host (pinned on a card)
-        self.inputs: list = []  # the uploaded input tensors, kept until the batch drains
+        self.staged = None      # the staging slots of those outputs (a group's first batch)
         self.done: list = []    # CUDA events recorded after the downloads
         self.group = None       # the grouped round trip it rides, if any
         self.issue = None       # the dispatch lane's future of its launch (or its group's)
@@ -1559,9 +1681,11 @@ class BatchRunner:
     open group), then hands the rest of its device lifetime to the
     runner's dispatch lane, one thread taking batches in submit order (the
     JAX package's io tasks ``_updf_plain``, ``_upload_dispatch_fetch`` and
-    ``_roundtrip_group``): the strict host arrays when strict, the pinned
-    upload, the program call (copy-in and replay, or the eager forward),
-    the download enqueue and its CUDA event, a full group as one task. The
+    ``_roundtrip_group``): the strict host arrays when strict, the upload
+    (on a card through slots of the process's pinned `StagingPool`, filled
+    by one copy), the program call (copy-in and replay, or the eager
+    forward), the download enqueue into pinned slots and its CUDA event, a
+    full group as one task. The
     lane then hands the wait for the downloads and the host pack to one of
     `max(2, depth)` io workers. One lane keeps the stream order a graph
     replay needs (it overwrites its static outputs, so a batch's download
@@ -1580,7 +1704,8 @@ class BatchRunner:
     check and wire pack; under FLACENC_INLINE_DISPATCH also the strict
     arrays, upload and launch), device_wait_s (the caller blocked on the
     lane's issue and a worker's result), pack_s (the workers' assembly
-    seconds), batches and max_inflight. FLACENC_TIMELINE=1 gives the
+    seconds), batches and max_inflight; `staging` counts its acquisitions
+    of staging slots. FLACENC_TIMELINE=1 gives the
     runner a `trace.Tracer` (`tracer`, else None): its point events,
     (event, batch, perf_counter, ...) tuples from every thread in time
     order, are `report()`'s `timeline`, and `tracer.report()` hands out
@@ -1644,6 +1769,10 @@ class BatchRunner:
         self.captures = 0  # programs this runner captured (0 when all were cached)
         self.capture_s = 0.0  # wall seconds those captures took, on the issuing thread
         self._report_lock = threading.Lock()  # captures: written by the lane, read by report
+        # acquisitions of `_STAGING` slots (uploads and downloads, on a card):
+        # from a kept slot ("waited" too: on its last use's event) or new
+        self.staging = {"staging_reused": 0, "staging_allocated": 0, "staging_waited": 0}
+        self.staging_cap = max(2, self.depth) + 1  # slots a key keeps: batches in flight + 1
         self.tracer: Optional[trace.Tracer] = trace.Tracer() if trace.enabled() else None
         self._seq = 0
 
@@ -1862,22 +1991,53 @@ class BatchRunner:
             self._programs[key] = prog
         return prog
 
+    def _stage(self, shape: tuple, dtype: torch.dtype) -> _Slot:
+        """A held slot of the process's pinned staging pool (`_STAGING`) on
+        the runner's device, counted in `report()`."""
+        slot, how = _STAGING.acquire(self.dev, shape, dtype, self.staging_cap)
+        with self._report_lock:
+            self.staging["staging_allocated" if how == "allocated" else "staging_reused"] += 1
+            self.staging["staging_waited"] += how == "waited"
+        return slot
+
+    def _unstage(self, batch: _Batch) -> None:
+        """Give the batch's output slots back (once; a group's ride on its
+        first batch): nothing built from them outlives the assembly."""
+        slots, batch.staged = batch.staged, None
+        for slot in slots or ():
+            _STAGING.release(slot)
+
+    def _card_events(self) -> list:
+        """An event recorded now on each card's default stream."""
+        return [_recorded(dev) for dev in dict.fromkeys(self.devices) if dev.type == "cuda"]
+
     def _run(self, wire, arrays, grouped: int = 0, seq: Optional[int] = None):
-        """Upload `arrays` (pinned on a card), run the program (over a mesh
-        each replica on its shard) and enqueue every output's download into
-        its rows of one host buffer, behind one CUDA event per card. It
+        """Upload `arrays`, run the program (over a mesh each replica on its
+        shard) and enqueue every output's download into its rows of one
+        host buffer, behind one CUDA event per card. On a card the upload
+        goes through slots of the pinned staging pool, each filled by one
+        copy and released behind an event per card recorded after the
+        program call (whose copies read it), and the outputs land in slots
+        of the same pool, which the batch holds until its assembly. It
         sets the thread's inference mode, device and stream itself, and
         holds every program's lock, then every program's pool lock, from
         its call to the event's record. Traced, its parts are the spans
-        ``lane.launch.pin``, ``.lock_wait``, ``.replay`` (none for a first
-        run that captures) and ``.download`` of batch `seq`. Returns (host
-        outputs, events, uploaded inputs)."""
+        ``lane.launch.pin`` (the upload slots acquired, any wait included,
+        and filled), ``.lock_wait``, ``.replay`` (none for a first run that
+        captures) and ``.download`` (the output slots, the copies, the
+        events) of batch `seq`. Returns (host outputs, events, output
+        slots)."""
         tracer = self.tracer
-        inputs = _host_tensors(arrays)
+        staged_in: List[_Slot] = []
         with torch.inference_mode(), _on_card(self.dev), contextlib.ExitStack() as held:
             if self.on_cuda:
                 with trace.span(tracer, "lane.launch.pin", seq):
-                    inputs = [x.pin_memory() for x in inputs]
+                    for a in map(_program_array, arrays):
+                        staged_in.append(self._stage(a.shape, _torch_dtype(a.dtype)))
+                        _fill(staged_in[-1].tensor, a)
+                inputs = [s.tensor for s in staged_in]
+            else:
+                inputs = _host_tensors(arrays)
             prog = self._program(wire, _input_shapes(inputs), grouped)
             sharded = isinstance(prog, pmesh.ShardedEncoder)
             progs = prog.replicas if sharded else [prog]
@@ -1887,8 +2047,14 @@ class BatchRunner:
                 for p in progs:
                     held.enter_context(p.pool_lock)
             fresh = [p for p in progs if p.capture and p.graph is None]
-            with trace.span(None if fresh else tracer, "lane.launch.replay", seq):
-                shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
+            try:
+                with trace.span(None if fresh else tracer, "lane.launch.replay", seq):
+                    shards = prog.launch(*inputs) if sharded else [(slice(None), prog(*inputs))]
+            finally:
+                if staged_in:
+                    uploaded = self._card_events()
+                    for slot in staged_in:
+                        _STAGING.release(slot, uploaded)
             with self._report_lock:
                 self.captures += len(fresh)
                 self.capture_s += sum(p.capture_s for p in fresh)
@@ -1896,10 +2062,13 @@ class BatchRunner:
                     for sl, out in shards]
             rows = inputs[0].shape[0]
             with trace.span(tracer, "lane.launch.download", seq):
-                host = [
-                    torch.empty((rows,) + o.shape[1:], dtype=o.dtype, pin_memory=self.on_cuda)
-                    for o in outs[0][1]
-                ]
+                shapes = [((rows,) + o.shape[1:], o.dtype) for o in outs[0][1]]
+                if self.on_cuda:
+                    staged_out = [self._stage(shape, dtype) for shape, dtype in shapes]
+                    host = [s.tensor for s in staged_out]
+                else:
+                    staged_out = []
+                    host = [torch.empty(shape, dtype=dtype) for shape, dtype in shapes]
                 done = {}
                 for sl, out in outs:
                     dev = out[0].device
@@ -1907,9 +2076,8 @@ class BatchRunner:
                         for h, o in zip(host, out):
                             h[sl].copy_(o, non_blocking=self.on_cuda)
                         if dev.type == "cuda":
-                            done[dev] = torch.cuda.Event()
-                            done[dev].record(torch.cuda.default_stream(dev))
-        return host, list(done.values()), inputs
+                            done[dev] = _recorded(dev)
+        return host, list(done.values()), staged_out
 
     def _issue(self, task, *args) -> concurrent.futures.Future:
         """Run `task` (a batch's launch or a group's round trip) on the
@@ -1952,7 +2120,7 @@ class BatchRunner:
                 chunk = _bucket_pad(batch.blocks, self.batch_size)
                 arrays = arrays + _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps,
                                                      self.strict_window)
-            batch.outputs, batch.done, batch.inputs = self._run(batch.wire, arrays,
+            batch.outputs, batch.done, batch.staged = self._run(batch.wire, arrays,
                                                                 seq=batch.seq)
             with trace.span(self.tracer, "lane.launch.handoff", batch.seq):
                 self._mark("issued", batch.seq)
@@ -1961,35 +2129,39 @@ class BatchRunner:
     def _fetch_assemble(self, entries: List[_Batch]):
         """io worker: wait for the entries' downloads (one batch, or a
         grouped round trip's batches, which share their events), then pack
-        each. Returns [(frames, pack seconds)] in entry order. Traced, the
+        each, and give their output slots back to the staging pool. Returns
+        [(frames, pack seconds)] in entry order. Traced, the
         wait is one ``io.wait`` span for the entries, with the worker
         thread's CPU time."""
         grouped = len(entries) > 1
         first = entries[0].seq
         if not grouped:
             self._mark("fetch_start", first)
-        with trace.span(self.tracer, "io.wait", first, cpu=True):
-            for event in entries[0].done:
-                event.synchronize()
-        if grouped:
-            self._mark("gfetch_done", first, len(entries))
-        else:
-            self._mark("fetch_done", first)
         out = []
-        for batch in entries:
-            t1 = time.perf_counter()
-            n = batch.blocks.shape[0]
-            host = [h.numpy()[:n] for h in batch.outputs]
-            if self.packer == "native2":
-                enc = split_decisions(host[0], self.nch)
+        try:
+            with trace.span(self.tracer, "io.wait", first, cpu=True):
+                for event in entries[0].done:
+                    event.synchronize()
+            if grouped:
+                self._mark("gfetch_done", first, len(entries))
             else:
-                enc = split_encoded(host[0], host[1], self.nch)
-            frames = self.assemble(
-                enc, batch.blocks, batch.nums, self.cfg, self.nch, self.bps,
-                batch.rate, self.block_size,
-            )
-            out.append((frames, time.perf_counter() - t1))
-            self._mark("asm_done", batch.seq)
+                self._mark("fetch_done", first)
+            for batch in entries:
+                t1 = time.perf_counter()
+                n = batch.blocks.shape[0]
+                host = [h.numpy()[:n] for h in batch.outputs]
+                if self.packer == "native2":
+                    enc = split_decisions(host[0], self.nch)
+                else:
+                    enc = split_encoded(host[0], host[1], self.nch)
+                frames = self.assemble(
+                    enc, batch.blocks, batch.nums, self.cfg, self.nch, self.bps,
+                    batch.rate, self.block_size,
+                )
+                out.append((frames, time.perf_counter() - t1))
+                self._mark("asm_done", batch.seq)
+        finally:
+            self._unstage(entries[0])
         if grouped:
             self._mark("gasm_done", first, len(entries))
         return out
@@ -2045,10 +2217,10 @@ class BatchRunner:
             with trace.span(self.tracer, "lane.launch", first, cpu=True):
                 stacked = [np.stack([e.payload[i] for e in entries])
                            for i in range(len(entries[0].payload))]
-                (host,), done, inputs = self._run(entries[0].wire, stacked,
-                                                  grouped=len(entries), seq=first)
+                (host,), done, entries[0].staged = self._run(entries[0].wire, stacked,
+                                                             grouped=len(entries), seq=first)
                 for g, e in enumerate(entries):
-                    e.outputs, e.done, e.inputs, e.slot = (host[g],), done, inputs, g
+                    e.outputs, e.done, e.slot = (host[g],), done, g
                 with trace.span(self.tracer, "lane.launch.handoff", first):
                     future = self._pool.submit(self._fetch_assemble, entries)
             for e in entries:
@@ -2140,7 +2312,7 @@ class BatchRunner:
         self.stats["device_wait_s"] += t1 - t0
         self.stats["pack_s"] += pack_s
         self.stats["batches"] += 1
-        batch.inputs = batch.outputs = batch.issue = batch.future = None
+        batch.outputs = batch.issue = batch.future = None
         self._mark("drain_done", batch.seq)
         return BatchResult(frames, batch.cookie)
 
@@ -2176,14 +2348,18 @@ class BatchRunner:
         The warms this runner queued run on, on the device's capture
         thread (as the JAX package's background compiles do;
         `wait_all_warms` waits for them, `close_capture_threads` joins the
-        thread)."""
+        thread). The output slots of batches whose assembly never ran go
+        back to the staging pool."""
         self._lane.shutdown(wait=True, cancel_futures=True)
         self._pool.shutdown(wait=True, cancel_futures=True)
+        for batch in self._inflight:
+            self._unstage(batch)
 
     def report(self) -> dict:
-        """The runner's wire, group and program counts, for `stats`."""
+        """The runner's wire, group, program and staging counts, for `stats`."""
         with self._report_lock:
             captures, capture_s = self.captures, self.capture_s
+            staging = dict(self.staging)
         background = [p for p in self._warmed if p.captured_by == "background"]
         out = {
             "wire_batches": {repr(k): v for k, v in self.wire_counts.items()},
@@ -2193,6 +2369,7 @@ class BatchRunner:
             "captures_background": len(background),
             "capture_background_s": sum((p.capture_s for p in background), 0.0),
             "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
+            **staging,
         }
         if self.tracer is not None:
             out["timeline"] = list(self.tracer.points)
@@ -2261,7 +2438,11 @@ def encode_with_fixed_block_size(
     the runner's wire_batches (batches per upload wire), grouped_batches,
     captures and capture_s (CUDA graphs this encode captured on its lane,
     and their seconds), captures_background and capture_background_s (those
-    its warms captured on a capture thread) and link_mbps. With
+    its warms captured on a capture thread), link_mbps, and staging_reused,
+    staging_allocated and staging_waited (the runner's acquisitions of
+    pinned staging slots, uploads and downloads: from a kept slot, new, and
+    of those kept the ones that waited on the slot's last copy; 0 on the
+    CPU). With
     FLACENC_TIMELINE=1 also timeline (the runner's stage marks), spans
     (this call's, as dicts: name, call, seq, thread, start_ns and end_ns
     on `perf_counter_ns`, cpu_ns of the thread where kept, parent, id; the

@@ -253,7 +253,8 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
     assert set(stats) == {"read_s", "submit_s", "device_wait_s", "pack_s",
                           "batches", "frames", "wall_s", "wire_batches", "grouped_batches",
                           "captures", "capture_s", "captures_background",
-                          "capture_background_s", "link_mbps", "max_inflight"}
+                          "capture_background_s", "link_mbps", "max_inflight",
+                          "staging_reused", "staging_allocated", "staging_waited"}
     assert stats["wire_batches"] == ({"None": stats["batches"]} if stats["batches"] else {})
     assert (stats["grouped_batches"], stats["captures"], stats["captures_background"]) == (
         0, 0, 0)  # eager on the CPU

@@ -22,6 +22,10 @@ card's replay, with shards that differ; the kernel's first launch on each
 card. A capture into a memory pool whose every graph was evicted (which
 evictions of per-card replicas cause).
 
+The pinned staging slots: a slot whose copy to the card is pending is not
+refilled, and three calls in a row on every wire, G=4, strict and a
+two-card mesh give the CPU path's bytes.
+
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -817,3 +821,119 @@ def test_first_launch_on_each_card_loads_the_kernel(cards):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.split() == ["ok", str(len(cards))]
+
+
+def _frame_bytes(results):
+    return [f.to_frame_bytes() for r in results for f in r.frames]
+
+
+def test_a_pending_upload_keeps_its_slot(cuda, monkeypatch):
+    """A staging slot is not refilled while its copy to the card is pending.
+    Behind a long sleep on the card's stream, a slot's copy lands its own
+    samples though the next acquisition of its key came meanwhile (and got
+    another slot); a runner's next batch of the same key, submitted while
+    the first batch's copy and replay wait behind the sleep, fills another
+    slot, and both batches' frames equal the CPU's."""
+    monkeypatch.setattr(tbe, "_STAGING", tbe.StagingPool())
+    monkeypatch.delenv("FLACENC_FETCH_GROUP", raising=False)
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    B, T = 4, 4096
+    rng = np.random.default_rng(16)
+    blocks = [np.cumsum(rng.integers(-300, 301, (B, 2, T)), -1).clip(-30000, 30000)
+              .astype(np.int32) for _ in range(3)]
+    # the pool alone: one slot's copy pending, the key's next acquisition
+    card = torch.device("cuda", torch.cuda.current_device())
+    shape, src = (B, 2, T), [b.astype(np.int16) for b in blocks[:2]]
+    first, _ = tbe._STAGING.acquire(card, shape, torch.int16, cap=3)
+    np.copyto(first.tensor.numpy(), src[0])
+    torch.cuda._sleep(int(1e9))  # ~0.5 s of the card's clock
+    on_card = first.tensor.to(card, non_blocking=True)
+    tbe._STAGING.release(first, [tbe._recorded(card)])
+    second, how = tbe._STAGING.acquire(card, shape, torch.int16, cap=3)
+    assert second is not first and how == "allocated"
+    np.copyto(second.tensor.numpy(), src[1])
+    torch.cuda.synchronize()
+    assert np.array_equal(on_card.cpu().numpy(), src[0])
+    tbe._STAGING.release(second)
+
+    cfg = config.Encoder()
+    nums = np.arange(B)
+    want = []
+    for dev in ("cpu", card):
+        runner = tbe.BatchRunner(cfg, 2, 16, T, B, dev, mesh=None, upload_pack=False)
+        try:
+            runner.submit(blocks[0], nums, 44100)  # the first run captures (it syncs)
+            done = list(runner.drain())
+            if dev != "cpu":
+                torch.cuda._sleep(int(1e9))
+            runner.submit(blocks[1], nums + B, 44100)
+            runner.submit(blocks[2], nums + 2 * B, 44100)
+            if dev != "cpu":
+                runner._lane_tail.result()  # both issued, the first copy still pending
+                ins = tbe._STAGING._slots[(str(card), shape, torch.int16)]
+                assert len(ins) == 2 and not all(e.query() for s in ins for e in s.events)
+            done += list(runner.drain())
+        finally:
+            runner.close()
+        want.append(_frame_bytes(done))
+    assert want[1] == want[0]
+
+
+def _staged_calls(x_list, device, **kw):
+    """Each signal's bytes and stats, one call each, batches of 2 at 2048."""
+    cfg = config.Encoder().into_verified()
+    out = []
+    for x in x_list:
+        stats = {}
+        data = flacenc_tpu_torch.encode_with_fixed_block_size(
+            cfg, MemSource(x, 2, 16, 44100), 2048, batch_size=2, device=device, stats=stats,
+            **kw).to_bytes()
+        out.append((data, stats))
+    return out
+
+
+def _three_signals():
+    """Three signals of more than 3 x the slot cap in batches of 2 at 2048."""
+    cap = max(2, tbe.constants.par.FRAMEBUF_MULTIPLICITY) + 1
+    n = (3 * cap + 2) * 2 * 2048 + 77
+    return [_stereo(n), _walk(n, seed=5), _stereo(n, noise=0.05)]
+
+
+@pytest.mark.parametrize("up,group,strict", [
+    (False, "1", False), ("delta", "1", False), (True, "1", False), (False, "4", False),
+    (False, "1", True),
+], ids=["raw", "delta16", "dense", "group4", "strict"])
+def test_staged_calls_equal_the_cpu(cuda, up, group, strict, monkeypatch):
+    """Three calls in a row, each longer than 3 x the slot cap in batches,
+    reuse the pool's slots across batches and calls and give the CPU path's
+    bytes on every wire, G=4 and strict."""
+    monkeypatch.delenv("FLACENC_INLINE_DISPATCH", raising=False)
+    monkeypatch.setenv("FLACENC_FETCH_GROUP", group)
+    signals = _three_signals()
+    kw = dict(strict_lpc=strict, mesh=None)
+    if group != "1":  # the grouped program warms on the capture thread: warm it first
+        _staged_calls(signals[:1], cuda, upload_pack=up, **kw)
+        tbe.wait_all_warms()
+    got = _staged_calls(signals, cuda, upload_pack=up, **kw)
+    want = _staged_calls(signals, "cpu", upload_pack=False, **kw)
+    assert [d for d, _ in got] == [d for d, _ in want]
+    for _, stats in got:
+        # an upload and an output slot a batch, or a round trip of G batches
+        acquired = stats["staging_reused"] + stats["staging_allocated"]
+        assert acquired >= 2 * stats["batches"] // int(group) > 0
+        if group != "1":
+            assert stats["grouped_batches"] == stats["batches"]
+    assert got[-1][1]["staging_reused"] > 0
+
+
+def test_staged_calls_over_two_cards_equal_the_cpu(cards, monkeypatch):
+    """A two-replica mesh (cuda:0, cuda:1) slices one pinned slot per shard:
+    three calls give the CPU path's bytes."""
+    from flacenc_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv("FLACENC_FETCH_GROUP", raising=False)
+    signals = _three_signals()
+    got = _staged_calls(signals, cards[0], mesh=mesh.block_mesh(cards[:2]))
+    want = _staged_calls(signals, "cpu", mesh=None, upload_pack=False)
+    assert [d for d, _ in got] == [d for d, _ in want]
+    assert all(s["staging_reused"] > 0 for _, s in got[1:])
