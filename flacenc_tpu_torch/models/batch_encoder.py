@@ -1704,13 +1704,16 @@ class BatchRunner:
     check and wire pack; under FLACENC_INLINE_DISPATCH also the strict
     arrays, upload and launch), device_wait_s (the caller blocked on the
     lane's issue and a worker's result), pack_s (the workers' assembly
-    seconds), batches and max_inflight; `staging` counts its acquisitions
+    seconds), batches and max_inflight, and upload_bytes and upload_samples
+    (each batch's payload bytes as shipped, after any fallback, and the
+    padded batch's samples); `staging` counts its acquisitions
     of staging slots. FLACENC_TIMELINE=1 gives the
     runner a `trace.Tracer` (`tracer`, else None): its point events,
     (event, batch, perf_counter, ...) tuples from every thread in time
     order, are `report()`'s `timeline`, and `tracer.report()` hands out
-    `spans` (``lane.queue``, and ``lane.launch`` with its children, on the
-    lane; ``io.wait`` on the workers; see ``trace``) and `trace_clock`
+    `spans` (``submit.upload``, the wire's choice and pack, on the caller;
+    ``lane.queue``, and ``lane.launch`` with its children, on the lane;
+    ``io.wait`` on the workers; see ``trace``) and `trace_clock`
     (perf_to_unix_ns)."""
 
     def __init__(self, cfg, nch: int, bps: int, block_size: int, batch_size: int,
@@ -1729,7 +1732,7 @@ class BatchRunner:
             get_window(cfg.subframe_coding.qlpc.window, block_size) if strict_lpc else None
         )
         self.stats = {"submit_s": 0.0, "device_wait_s": 0.0, "pack_s": 0.0, "batches": 0,
-                      "max_inflight": 0}
+                      "max_inflight": 0, "upload_bytes": 0, "upload_samples": 0}
         self._inflight: List[_Batch] = []
         self.depth = constants.par.FRAMEBUF_MULTIPLICITY
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -2245,14 +2248,17 @@ class BatchRunner:
             blocks = np.stack(blocks)
         chunk = _bucket_pad(blocks, self.batch_size)
         verify_sample_range(chunk, self.bps)
-        wire, payload, kind = self._upload(chunk)
-        if self.async_compile and not self._wire_ready(wire, payload):
-            # the chosen wire's program warms on the capture thread; this
-            # batch ships on a warm wire, so the stream never waits for it
-            self._start_warm(wire, payload)
-            wire, payload = self._fallback_wire(chunk)
-            kind = _kind(wire)
+        with trace.span(self.tracer, "submit.upload", seq):
+            wire, payload, kind = self._upload(chunk)
+            if self.async_compile and not self._wire_ready(wire, payload):
+                # the chosen wire's program warms on the capture thread; this
+                # batch ships on a warm wire, so the stream never waits for it
+                self._start_warm(wire, payload)
+                wire, payload = self._fallback_wire(chunk)
+                kind = _kind(wire)
         nbytes = sum(a.nbytes for a in payload)
+        self.stats["upload_bytes"] += nbytes
+        self.stats["upload_samples"] += chunk.size
         self._wire_kind = kind
         self.upload_pack = wire is not None
         self.wire_counts[wire] = self.wire_counts.get(wire, 0) + 1
@@ -2434,7 +2440,10 @@ def encode_with_fixed_block_size(
     FLACENC_INLINE_DISPATCH), device_wait_s (the caller's thread blocked on
     a batch's issue, downloads and pack, run by the lane and an io worker),
     pack_s (the workers' pack seconds), batches,
-    max_inflight (at most FLACENC_PIPELINE_DEPTH), frames and wall_s; and
+    max_inflight (at most FLACENC_PIPELINE_DEPTH), upload_bytes and
+    upload_samples (the batches' upload payload bytes as shipped, and their
+    padded samples: 4 bytes a sample on the raw int32 wire), frames and
+    wall_s; and
     the runner's wire_batches (batches per upload wire), grouped_batches,
     captures and capture_s (CUDA graphs this encode captured on its lane,
     and their seconds), captures_background and capture_background_s (those

@@ -59,6 +59,8 @@ class PipelineStats:
     captures_background: int = 0      # CUDA graphs its warms captured on a capture thread
     capture_background_s: float = 0.0  # wall seconds of those
     link_mbps: Optional[float] = None  # the racer's latest upload rate
+    upload_bytes: int = 0       # the batches' upload payloads as shipped
+    upload_samples: int = 0     # the padded batches' samples
 
 
 class _Md5Thread:
@@ -241,7 +243,8 @@ def encode_corpus(
         md5_thread.stop()
         stats.md5_wait_s += time.perf_counter() - t0
     md5_thread.check()
-    for key in ("submit_s", "device_wait_s", "pack_s", "batches"):
+    for key in ("submit_s", "device_wait_s", "pack_s", "batches", "upload_bytes",
+                "upload_samples"):
         setattr(stats, key, runner.stats[key])
     stats.max_inflight_batches = runner.stats["max_inflight"]
     report = runner.report()

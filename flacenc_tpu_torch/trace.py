@@ -11,7 +11,8 @@ A span is its name, the tracer's call id, the batch's submit sequence number
 when it began. A span opened with ``cpu=True`` also keeps the thread's CPU
 nanoseconds over it (`time.thread_time_ns`); the others keep None. Spans of
 one batch share (call, seq). A name with a dot is a child of the span named
-before the dot (``lane.launch.pin`` of ``lane.launch``).
+before the dot where that one is recorded (``lane.launch.pin`` of
+``lane.launch``; ``submit.upload``, on the caller, has no ``submit``).
 `Tracer.clock["perf_to_unix_ns"]`, the least of five readings of
 ``time_ns() - perf_counter_ns()``, puts a span on the clock of
 `torch.profiler`'s events (Unix nanoseconds).

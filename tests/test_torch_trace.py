@@ -109,12 +109,13 @@ def test_every_batch_has_its_spans(strict):
     per = collections.defaultdict(collections.Counter)
     for s in spans:
         per[s["seq"]][s["name"]] += 1
-    want = {"lane.queue", "lane.launch", "io.wait"} | LANE_CHILDREN
+    want = {"submit.upload", "lane.queue", "lane.launch", "io.wait"} | LANE_CHILDREN
     for seq in range(12):
         assert set(per[seq]) == want, (seq, per[seq])
         assert all(n == 1 for n in per[seq].values()), (seq, per[seq])
     for s in spans:
-        thread = {"lane": "flacenc-lane", "io": "flacenc-io", "call": "MainThread"}
+        thread = {"lane": "flacenc-lane", "io": "flacenc-io", "call": "MainThread",
+                  "submit": "MainThread"}
         assert s["thread"].startswith(thread[s["name"].split(".")[0]]), s
     for s in _by(spans, "lane.launch"):
         children = [c for c in spans if c["parent"] == s["id"]]
