@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -91,3 +93,55 @@ def name_card(error: BaseException, dev: torch.device) -> BaseException:
     if note not in getattr(error, "__notes__", ()):
         error.add_note(note)
     return error
+
+
+class LinkTiming(NamedTuple):
+    """One timed run of host-to-device copies: the card, the bytes copied
+    and the timing CUDA events recorded on its stream before and after."""
+
+    device: str
+    nbytes: int
+    start: object
+    end: object
+
+    def seconds(self) -> float:
+        """The copies' seconds on the card's clock; call it only once an
+        event recorded after `end` has completed, so that nothing waits."""
+        return self.start.elapsed_time(self.end) / 1e3
+
+
+_UPLOADS = threading.local()  # the list `collect_uploads` gathers into on this thread
+
+
+@contextlib.contextmanager
+def collect_uploads():
+    """Gathers, in the list it yields, the `LinkTiming` of every
+    `timed_upload` block this thread runs inside it."""
+    outer = getattr(_UPLOADS, "timings", None)
+    _UPLOADS.timings = timings = []
+    try:
+        yield timings
+    finally:
+        _UPLOADS.timings = outer
+
+
+@contextlib.contextmanager
+def timed_upload(dev: torch.device, inputs):
+    """Times the copies of `inputs` to card `dev` that the block enqueues
+    on the card's current stream, between two timing events, for the
+    `collect_uploads` around it. A no-op outside one, off a card, or where
+    no input lives on the host."""
+    timings = getattr(_UPLOADS, "timings", None)
+    nbytes = 0
+    if timings is not None and dev.type == "cuda":
+        nbytes = sum(x.nbytes for x in inputs if x.device.type == "cpu")
+    if not nbytes:
+        yield
+        return
+    stream = torch.cuda.current_stream(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    yield
+    end = torch.cuda.Event(enable_timing=True)
+    end.record(stream)
+    timings.append(LinkTiming(str(dev), nbytes, start, end))

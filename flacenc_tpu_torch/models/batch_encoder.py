@@ -63,10 +63,11 @@ from ..component.datatype import (
     Stream,
     Verbatim,
 )
+from ..device import collect_uploads
 from ..device import multi_process as _multi_process
 from ..device import name_card
 from ..device import on_card as _on_card
-from ..device import resolve_device
+from ..device import resolve_device, timed_upload
 from ..errors import Verified
 from ..log import info_stats
 from ..ops import fixed as ops_fixed
@@ -1052,6 +1053,55 @@ def _link_est_for(bucket: int) -> LinkEstimator:
 
 
 # ---------------------------------------------------------------------------
+# The link gate: raw PCM ships without the racer while the link, timed on
+# the card, moves it in less time than the caller takes to pack any wire
+# ---------------------------------------------------------------------------
+
+
+class Costs:
+    """Process-wide costs by key, each a geometric EWMA that adopts an
+    improvement at once (capped at 2x the new sample), as the racer's
+    estimates do: a stall inflates a cost, nothing deflates it below the
+    true one. Safe to feed from several threads."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._costs: dict = {}
+
+    def note(self, key, sample: float) -> None:
+        if sample <= 0:
+            return
+        with self._lock:
+            prev = self._costs.get(key)
+            self._costs[key] = sample if prev is None else min(
+                float((prev * sample) ** 0.5), 2.0 * sample)
+
+    def get(self, key) -> Optional[float]:
+        return self._costs.get(key)
+
+
+# str(device) -> seconds a byte of its host-to-device link, from the
+# event-timed uploads of every wire (`BatchRunner._note_link`)
+_LINK_COSTS = Costs()
+# (payload-shape bucket, bps, packed kind) -> the caller's seconds to pack
+# one batch on that kind's wire (`BatchRunner._upload`)
+_PACK_COSTS = Costs()
+
+
+def link_gate(link_bps: Optional[float], raw_bytes: int, pack_s: dict) -> bool:
+    """Whether a batch ships raw PCM without asking the racer: its
+    `raw_bytes` over the measured link bandwidth (bytes a second) take less
+    time than the least of the measured pack seconds in `pack_s` (packed
+    kind -> seconds). A packed wire moves work from the link to the caller's
+    thread, which then pays at least that pack, so on such a link no wire
+    finishes a batch sooner than raw. False, for the racer, while either
+    is unmeasured."""
+    if not link_bps or not pack_s:
+        return False
+    return raw_bytes / link_bps < min(pack_s.values())
+
+
+# ---------------------------------------------------------------------------
 # The program registry: one module, and on a card one CUDA graph, per key
 # ---------------------------------------------------------------------------
 
@@ -1181,7 +1231,8 @@ class Program:
     Captures on one device hold one lock, so they never overlap, and use
     the "thread_local" error mode, so other threads may replay, pin host
     memory and wait on events meanwhile. Later calls copy their inputs
-    into the static buffers and replay. A replay overwrites the static
+    into the static buffers and replay. A call's copies from the host are
+    timed on the card (`device.timed_upload`). A replay overwrites the static
     outputs, and those of a graph may lie in the blocks another graph of
     its pool uses for its intermediates, so from a replay to the download
     (or the check's read) of its outputs the replayer holds `pool_lock`,
@@ -1238,14 +1289,17 @@ class Program:
     def __call__(self, *inputs: torch.Tensor):
         with _on_card(self.device):
             if not self.capture:
-                out = self.module(*(x.to(self.device, non_blocking=True) for x in inputs))
+                with timed_upload(self.device, inputs):
+                    xs = [x.to(self.device, non_blocking=True) for x in inputs]
+                out = self.module(*xs)
                 _count_forwards(self.device, self.batches)
                 self._ran()
                 return out
             if self.graph is None:
                 return self._capture(inputs, "lane")
-            for static, x in zip(self.static_in, inputs):
-                static.copy_(x, non_blocking=True)
+            with timed_upload(self.device, inputs):
+                for static, x in zip(self.static_in, inputs):
+                    static.copy_(x, non_blocking=True)
             self.graph.replay()
         _count_forwards(self.device, self.batches)
         return self.static_out
@@ -1577,7 +1631,8 @@ class _Batch:
     of its outputs."""
 
     __slots__ = ("blocks", "nums", "rate", "cookie", "payload", "wire", "kind", "nbytes",
-                 "seq", "outputs", "staged", "done", "group", "issue", "future", "slot")
+                 "seq", "outputs", "staged", "done", "group", "issue", "future", "slot",
+                 "link")
 
     def __init__(self, blocks, nums, rate, cookie, payload, wire, kind, nbytes, seq):
         self.blocks = blocks    # (n, C, T) real (unpadded) blocks
@@ -1596,6 +1651,7 @@ class _Batch:
         self.issue = None       # the dispatch lane's future of its launch (or its group's)
         self.future = None      # the io worker's [(frames, pack_s)] for it
         self.slot = 0           # its index in that result (its place in the group)
+        self.link = ()          # the `device.LinkTiming`s of its upload (a group's first batch)
 
 
 def _mesh_device_count(mesh, batch_size: int, dev: torch.device) -> int:
@@ -1670,8 +1726,14 @@ class BatchRunner:
     raw): True forces the dense wires of ``ops.upack.try_pack`` (raises when
     bps > 24 or the block size is not a multiple of 16), "delta" the delta16
     wire (bps <= 16 only), False raw PCM, "auto" the racer (`LinkEstimator`,
-    fed by the drain gaps of homogeneous pairs). Unset, the racer runs only
-    for the "native2" packer on a card. FLACENC_FETCH_GROUP=G stacks G
+    fed by the drain gaps of homogeneous pairs) behind the link gate
+    (`link_gate`): a batch ships raw without asking the racer while raw's
+    bytes over the card's link, as timed by CUDA events around the uploads
+    of every wire (`_LINK_COSTS`), take less time than the least the caller
+    has taken to pack a batch of this shape on any packed wire
+    (`_PACK_COSTS`); the CPU has no link, so there the racer alone decides.
+    Unset, the racer runs only for the "native2" packer on a card. The
+    forced wires are never gated. FLACENC_FETCH_GROUP=G stacks G
     batches into one grouped round trip; unset, grouping engages when the
     measured download wait exceeds `_GROUP_FETCH_MIN_S`.
     No wire and no G changes the bytes.
@@ -1704,11 +1766,13 @@ class BatchRunner:
     check and wire pack; under FLACENC_INLINE_DISPATCH also the strict
     arrays, upload and launch), device_wait_s (the caller blocked on the
     lane's issue and a worker's result), pack_s (the workers' assembly
-    seconds), batches and max_inflight, and upload_bytes and upload_samples
+    seconds), batches and max_inflight, upload_bytes and upload_samples
     (each batch's payload bytes as shipped, after any fallback, and the
-    padded batch's samples); `staging` counts its acquisitions
-    of staging slots. FLACENC_TIMELINE=1 gives the
-    runner a `trace.Tracer` (`tracer`, else None): its point events,
+    padded batch's samples), and upload_raw_batches (the batches shipped on
+    raw PCM); `staging` counts its acquisitions of staging slots, and
+    `link` the event-timed uploads whose timings its io workers read
+    (link_bytes, and link_s on the card's clock; 0 on the CPU).
+    FLACENC_TIMELINE=1 gives the runner a `trace.Tracer` (`tracer`, else None): its point events,
     (event, batch, perf_counter, ...) tuples from every thread in time
     order, are `report()`'s `timeline`, and `tracer.report()` hands out
     `spans` (``submit.upload``, the wire's choice and pack, on the caller;
@@ -1732,7 +1796,8 @@ class BatchRunner:
             get_window(cfg.subframe_coding.qlpc.window, block_size) if strict_lpc else None
         )
         self.stats = {"submit_s": 0.0, "device_wait_s": 0.0, "pack_s": 0.0, "batches": 0,
-                      "max_inflight": 0, "upload_bytes": 0, "upload_samples": 0}
+                      "max_inflight": 0, "upload_bytes": 0, "upload_samples": 0,
+                      "upload_raw_batches": 0}
         self._inflight: List[_Batch] = []
         self.depth = constants.par.FRAMEBUF_MULTIPLICITY
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -1753,6 +1818,7 @@ class BatchRunner:
         self._group_warm: Optional[concurrent.futures.Future] = None
         self._group_key: Optional[tuple] = None  # (wire, payload shapes) of that program
         self._est = _link_est_for(_shape_bucket(batch_size * nch * block_size))
+        self._pack_key = (_shape_bucket(batch_size * nch * block_size), bps)  # `_PACK_COSTS`
         # wire kind of the last submitted batch: the racer's incumbent
         self._wire_kind = {"on": "pack", "delta": "d"}.get(self.upload_mode, "raw")
         if self.upload_mode == "auto":
@@ -1776,6 +1842,8 @@ class BatchRunner:
         # from a kept slot ("waited" too: on its last use's event) or new
         self.staging = {"staging_reused": 0, "staging_allocated": 0, "staging_waited": 0}
         self.staging_cap = max(2, self.depth) + 1  # slots a key keeps: batches in flight + 1
+        # the event-timed uploads whose seconds the io workers read (`_note_link`)
+        self.link = {"link_bytes": 0, "link_s": 0.0}
         self.tracer: Optional[trace.Tracer] = trace.Tracer() if trace.enabled() else None
         self._seq = 0
 
@@ -1868,28 +1936,60 @@ class BatchRunner:
                 wire = ("m", om, pm, fm, os2, ps, fs)
         return wire, payload
 
+    def _link_bps(self) -> Optional[float]:
+        """The measured link bandwidth for a whole batch, bytes a second:
+        over a mesh each card takes its shards' share of the bytes, and the
+        slowest share sets it. None while a card is unmeasured (always on
+        the CPU, which has no link)."""
+        worst = 0.0
+        for dev, shards in collections.Counter(str(d) for d in self.devices).items():
+            per_byte = _LINK_COSTS.get(dev)
+            if per_byte is None:
+                return None
+            worst = max(worst, per_byte * shards / len(self.devices))
+        return 1.0 / worst
+
+    def _raw_wins(self, chunk: np.ndarray) -> bool:
+        """The link gate (`link_gate`) for this batch, on the measured
+        link and this shape's measured packs."""
+        raw_bytes = chunk.size * (2 if self.bps <= 16 else chunk.dtype.itemsize)
+        pack_s = {}
+        for kind in self._kinds()[1:]:
+            seconds = _PACK_COSTS.get(self._pack_key + (kind,))
+            if seconds is not None:
+                pack_s[kind] = seconds
+        return link_gate(self._link_bps(), raw_bytes, pack_s)
+
     def _upload(self, chunk: np.ndarray):
         """(wire, payload arrays, kind) for this batch: the racer's (or the
-        mode's) kind, packed; raw when nothing beats it."""
+        mode's) kind, packed; raw when nothing beats it. The racer is asked
+        only while the link gate is open (`_raw_wins`): closed, the batch
+        ships raw and the first batch warms no packed wire. The caller's
+        seconds of each pack feed `_PACK_COSTS`."""
         kind = "raw"
+        gated = False
         if self._eligible_pack:
             if self.upload_mode == "auto":
-                kind = self._est.choose(self._kinds(), self._wire_kind)
+                gated = self._raw_wins(chunk)
+                if not gated:
+                    kind = self._est.choose(self._kinds(), self._wire_kind)
             elif self.upload_mode == "on":
                 kind = "pack"
             elif self.upload_mode == "delta":
                 kind = "d"
-        if self.async_compile and not self.wire_counts and not self._warming:
+        if self.async_compile and not gated and not self.wire_counts and not self._warming:
             self._prewarm(chunk)
-        packed = None
-        if kind == "pack":
-            packed = self._try_pack_cached(chunk)
-        elif kind == "d":
-            packed = upack.pack_delta(chunk)
+        if kind == "raw":
+            return None, self._raw(chunk), "raw"
+        t0 = time.perf_counter()
+        packed = self._try_pack_cached(chunk) if kind == "pack" else upack.pack_delta(chunk)
         if packed is not None:
-            wire, payload = self._sticky(*packed)
-            return wire, tuple(payload), _kind(wire)
-        return None, self._raw(chunk), "raw"
+            packed = self._sticky(*packed)
+        _PACK_COSTS.note(self._pack_key + (kind,), time.perf_counter() - t0)
+        if packed is None:
+            return None, self._raw(chunk), "raw"
+        wire, payload = packed
+        return wire, tuple(payload), _kind(wire)
 
     def _raw(self, chunk: np.ndarray) -> tuple:
         # int16 upload when bps <= 16 halves the host->device bytes
@@ -2123,8 +2223,10 @@ class BatchRunner:
                 chunk = _bucket_pad(batch.blocks, self.batch_size)
                 arrays = arrays + _strict_ext_arrays(chunk, self.cfg, self.nch, self.bps,
                                                      self.strict_window)
-            batch.outputs, batch.done, batch.staged = self._run(batch.wire, arrays,
-                                                                seq=batch.seq)
+            with collect_uploads() as link:
+                batch.outputs, batch.done, batch.staged = self._run(batch.wire, arrays,
+                                                                    seq=batch.seq)
+            batch.link = link
             with trace.span(self.tracer, "lane.launch.handoff", batch.seq):
                 self._mark("issued", batch.seq)
                 batch.future = self._pool.submit(self._fetch_assemble, [batch])
@@ -2132,7 +2234,8 @@ class BatchRunner:
     def _fetch_assemble(self, entries: List[_Batch]):
         """io worker: wait for the entries' downloads (one batch, or a
         grouped round trip's batches, which share their events), then pack
-        each, and give their output slots back to the staging pool. Returns
+        each, and give their output slots back to the staging pool; the
+        waits done, the upload's timings are read (`_note_link`). Returns
         [(frames, pack seconds)] in entry order. Traced, the
         wait is one ``io.wait`` span for the entries, with the worker
         thread's CPU time."""
@@ -2145,6 +2248,7 @@ class BatchRunner:
             with trace.span(self.tracer, "io.wait", first, cpu=True):
                 for event in entries[0].done:
                     event.synchronize()
+            self._note_link(entries[0].link)
             if grouped:
                 self._mark("gfetch_done", first, len(entries))
             else:
@@ -2168,6 +2272,23 @@ class BatchRunner:
         if grouped:
             self._mark("gasm_done", first, len(entries))
         return out
+
+    def _note_link(self, timings) -> None:
+        """io worker, once a batch's downloads have completed (and with
+        them every copy enqueued before): each timed upload's seconds on its
+        card feed the card's link cost in `_LINK_COSTS`, and the runner's
+        link_bytes and link_s."""
+        if not timings:
+            return
+        nbytes, seconds = 0, 0.0
+        for t in timings:
+            s = t.seconds()
+            _LINK_COSTS.note(t.device, s / t.nbytes)
+            nbytes += t.nbytes
+            seconds += s
+        with self._report_lock:
+            self.link["link_bytes"] += nbytes
+            self.link["link_s"] += seconds
 
     # -- grouped round trips ------------------------------------------------
 
@@ -2220,8 +2341,10 @@ class BatchRunner:
             with trace.span(self.tracer, "lane.launch", first, cpu=True):
                 stacked = [np.stack([e.payload[i] for e in entries])
                            for i in range(len(entries[0].payload))]
-                (host,), done, entries[0].staged = self._run(entries[0].wire, stacked,
-                                                             grouped=len(entries), seq=first)
+                with collect_uploads() as link:
+                    (host,), done, entries[0].staged = self._run(
+                        entries[0].wire, stacked, grouped=len(entries), seq=first)
+                entries[0].link = link
                 for g, e in enumerate(entries):
                     e.outputs, e.done, e.slot = (host[g],), done, g
                 with trace.span(self.tracer, "lane.launch.handoff", first):
@@ -2259,6 +2382,7 @@ class BatchRunner:
         nbytes = sum(a.nbytes for a in payload)
         self.stats["upload_bytes"] += nbytes
         self.stats["upload_samples"] += chunk.size
+        self.stats["upload_raw_batches"] += wire is None
         self._wire_kind = kind
         self.upload_pack = wire is not None
         self.wire_counts[wire] = self.wire_counts.get(wire, 0) + 1
@@ -2362,10 +2486,12 @@ class BatchRunner:
             self._unstage(batch)
 
     def report(self) -> dict:
-        """The runner's wire, group, program and staging counts, for `stats`."""
+        """The runner's wire, group, program, staging and link counts, for
+        `stats`."""
         with self._report_lock:
             captures, capture_s = self.captures, self.capture_s
             staging = dict(self.staging)
+            link = dict(self.link)
         background = [p for p in self._warmed if p.captured_by == "background"]
         out = {
             "wire_batches": {repr(k): v for k, v in self.wire_counts.items()},
@@ -2376,6 +2502,7 @@ class BatchRunner:
             "capture_background_s": sum((p.capture_s for p in background), 0.0),
             "link_mbps": round(self._est.mbps, 1) if self._est.mbps else None,
             **staging,
+            **link,
         }
         if self.tracer is not None:
             out["timeline"] = list(self.tracer.points)
@@ -2443,7 +2570,7 @@ def encode_with_fixed_block_size(
     max_inflight (at most FLACENC_PIPELINE_DEPTH), upload_bytes and
     upload_samples (the batches' upload payload bytes as shipped, and their
     padded samples: 4 bytes a sample on the raw int32 wire), frames and
-    wall_s; and
+    wall_s, upload_raw_batches (the batches shipped on raw PCM); and
     the runner's wire_batches (batches per upload wire), grouped_batches,
     captures and capture_s (CUDA graphs this encode captured on its lane,
     and their seconds), captures_background and capture_background_s (those
@@ -2451,7 +2578,8 @@ def encode_with_fixed_block_size(
     staging_allocated and staging_waited (the runner's acquisitions of
     pinned staging slots, uploads and downloads: from a kept slot, new, and
     of those kept the ones that waited on the slot's last copy; 0 on the
-    CPU). With
+    CPU), link_bytes and link_s (the uploads timed by CUDA events on the
+    card, their bytes and seconds; 0 on the CPU). With
     FLACENC_TIMELINE=1 also timeline (the runner's stage marks), spans
     (this call's, as dicts: name, call, seq, thread, start_ns and end_ns
     on `perf_counter_ns`, cpu_ns of the thread where kept, parent, id; the

@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import name_card, on_card, resolve_device
+from ..device import name_card, on_card, resolve_device, timed_upload
 
 BLOCK_AXIS = "blocks"
 
@@ -111,7 +111,8 @@ class ShardedEncoder:
         i there, shard after shard, waiting on none. On a card both go on
         its default stream with it current (`device.on_card`), whichever
         card the calling thread has current, so shard i's copy is ordered
-        before replica i's replay. A replica's error raises with a note
+        before replica i's replay. Each shard's copy is timed on its card
+        (`device.timed_upload`). A replica's error raises with a note
         naming its device."""
         n = self.mesh.size
         B = inputs[0].shape[0]
@@ -123,7 +124,9 @@ class ShardedEncoder:
             sl = slice(i * per, (i + 1) * per)
             try:
                 with on_card(dev):
-                    xs = [x[sl].to(dev, non_blocking=True) for x in inputs]
+                    parts = [x[sl] for x in inputs]
+                    with timed_upload(dev, parts):
+                        xs = [x.to(dev, non_blocking=True) for x in parts]
                     shards.append((sl, rep(*xs)))
             except BaseException as e:
                 name_card(e, dev)

@@ -61,6 +61,9 @@ class PipelineStats:
     link_mbps: Optional[float] = None  # the racer's latest upload rate
     upload_bytes: int = 0       # the batches' upload payloads as shipped
     upload_samples: int = 0     # the padded batches' samples
+    upload_raw_batches: int = 0  # the batches shipped on raw PCM
+    link_bytes: int = 0         # uploads timed by CUDA events on the card: their bytes
+    link_s: float = 0.0         # and their seconds on the card's clock
 
 
 class _Md5Thread:
@@ -244,7 +247,7 @@ def encode_corpus(
         stats.md5_wait_s += time.perf_counter() - t0
     md5_thread.check()
     for key in ("submit_s", "device_wait_s", "pack_s", "batches", "upload_bytes",
-                "upload_samples"):
+                "upload_samples", "upload_raw_batches"):
         setattr(stats, key, runner.stats[key])
     stats.max_inflight_batches = runner.stats["max_inflight"]
     report = runner.report()
@@ -255,6 +258,8 @@ def encode_corpus(
     stats.captures_background = report["captures_background"]
     stats.capture_background_s = report["capture_background_s"]
     stats.link_mbps = report["link_mbps"]
+    stats.link_bytes = report["link_bytes"]
+    stats.link_s = report["link_s"]
 
     results: Dict[str, Stream] = {}
     for fi, (name, src) in enumerate(sources):

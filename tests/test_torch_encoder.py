@@ -255,7 +255,8 @@ def test_stream_bytes_match_jax_and_oracle(n_samples, batch_size):
                           "captures", "capture_s", "captures_background",
                           "capture_background_s", "link_mbps", "max_inflight",
                           "staging_reused", "staging_allocated", "staging_waited",
-                          "upload_bytes", "upload_samples"}
+                          "upload_bytes", "upload_samples", "upload_raw_batches",
+                          "link_bytes", "link_s"}
     assert stats["wire_batches"] == ({"None": stats["batches"]} if stats["batches"] else {})
     assert (stats["grouped_batches"], stats["captures"], stats["captures_background"]) == (
         0, 0, 0)  # eager on the CPU

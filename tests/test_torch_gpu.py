@@ -26,6 +26,14 @@ The pinned staging slots: a slot whose copy to the card is pending is not
 refilled, and three calls in a row on every wire, G=4, strict and a
 two-card mesh give the CPU path's bytes.
 
+The link gate: the event-timed uploads read the card's link above 1 GB/s;
+once a forced packed encode has measured the packs, the default path on
+album material ships raw after its first batch and counts it in `stats`;
+its bytes equal the forced raw and packed encodes'.
+
+The tests of a background capture started by the racer plant empty pack
+costs, so that the link gate stays open and the racer warms its wires.
+
 Every test here carries the `gpu` marker and skips without a card. This
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -472,6 +480,12 @@ def test_two_runners_in_two_threads_share_a_program(cuda, monkeypatch):
     assert len(tbe._PROGRAMS) == keys  # no key was added: both ran the shared program
 
 
+def _gate_open(monkeypatch):
+    """No pack measured (earlier tests' packs forgotten for this one): the
+    link gate stays open until the racer's own packs are timed."""
+    monkeypatch.setattr(tbe, "_PACK_COSTS", tbe.Costs())
+
+
 def _held_background_capture(monkeypatch):
     """Hold the first capture on a capture thread open, mid-forward, until
     the returned `release` event is set; `capturing` is set once it is."""
@@ -506,6 +520,7 @@ def test_background_capture_beside_replays_of_the_same_pool(cuda, monkeypatch):
     want = [_encode_bytes(x, upload_pack=False) for x in xs]  # raw: captured, replayed
     monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)(
         (k, p) for k, p in tbe._PROGRAMS.items() if p.key[6] is None))  # wires fresh
+    _gate_open(monkeypatch)
     capturing, release = _held_background_capture(monkeypatch)
     got, errors = [], []
 
@@ -548,6 +563,7 @@ def test_check_replay_holds_the_pool_against_older_graphs(cuda, monkeypatch):
     want = [_encode_bytes(x, upload_pack=False) for x in xs]  # raw: captured, replayed
     monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)(
         (k, p) for k, p in tbe._PROGRAMS.items() if p.key[6] is None))  # wires fresh
+    _gate_open(monkeypatch)
     in_check, order = threading.Event(), []
     equal, call = tbe._outputs_equal, tbe.Program.__call__
 
@@ -625,6 +641,7 @@ def test_wait_all_warms_during_an_open_capture(cuda, monkeypatch):
     monkeypatch.setattr(tbe, "_PROGRAMS", type(tbe._PROGRAMS)())
     x = _walk(11 * 2048 + 3)
     want = _encode_bytes(x, upload_pack=False)
+    _gate_open(monkeypatch)
     capturing, release = _held_background_capture(monkeypatch)
     syncs = []
     sync = torch.cuda.synchronize
@@ -937,3 +954,59 @@ def test_staged_calls_over_two_cards_equal_the_cpu(cards, monkeypatch):
     want = _staged_calls(signals, "cpu", mesh=None, upload_pack=False)
     assert [d for d, _ in got] == [d for d, _ in want]
     assert all(s["staging_reused"] > 0 for _, s in got[1:])
+
+
+def _album(scale=0.05, seed=7):
+    """The benchmark's album at `scale` of its length, its tracks back to
+    back as one interleaved CD stream."""
+    from benchmark import traffic
+
+    fmt = {"sample_rate": 44100, "bits_per_sample": 16, "channels": 2}
+    sources = traffic.generate(traffic.load_mix("album"), fmt, seed, scale)
+    return np.concatenate([src.pcm for src in sources]).reshape(-1)
+
+
+def _album_bytes(x, **kw):
+    cfg = config.Encoder().into_verified()
+    return flacenc_tpu_torch.encode_with_fixed_block_size(
+        cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=16, device="cuda", mesh=None,
+        **kw).to_bytes()
+
+
+def test_event_timed_link_reads_above_1_gbps(cuda, monkeypatch):
+    """Raw uploads timed by CUDA events read the card's link faster than
+    1 GB/s, and their per-byte cost lands in the card's link estimate. A
+    first run that captures its graph times no copy, so at most one batch's
+    upload goes untimed."""
+    monkeypatch.setattr(tbe, "_LINK_COSTS", tbe.Costs())
+    stats = {}
+    _album_bytes(_album(0.01), upload_pack=False, stats=stats)
+    per_batch = stats["upload_bytes"] // stats["batches"]
+    assert stats["upload_bytes"] >= stats["link_bytes"] >= stats["upload_bytes"] - per_batch > 0
+    gbps = stats["link_bytes"] / stats["link_s"] / 1e9
+    assert gbps > 1.0, gbps
+    card = str(torch.device("cuda", torch.cuda.current_device()))
+    assert 1.0 / tbe._LINK_COSTS.get(card) > 1e9
+
+
+def test_default_path_ships_raw_once_the_link_and_packs_are_measured(cuda, monkeypatch):
+    """A forced packed encode of album material measures the link and the
+    packs; the default path (the racer behind the gate) then ships at least
+    99 % of its batches after the first raw, counts them in `stats`, and
+    its bytes equal the forced raw and packed encodes'."""
+    for name in ("FLACENC_PACKED_UPLOAD", "FLACENC_FETCH_GROUP", "FLACENC_INLINE_DISPATCH"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(tbe, "_LINK_COSTS", tbe.Costs())
+    monkeypatch.setattr(tbe, "_PACK_COSTS", tbe.Costs())
+    x = _album()
+    packed_stats, stats = {}, {}
+    packed = _album_bytes(x, upload_pack=True, stats=packed_stats)
+    assert packed_stats["upload_raw_batches"] < packed_stats["batches"]
+    tbe.wait_all_warms()
+    got = _album_bytes(x, stats=stats)
+    assert {"upload_raw_batches", "link_bytes", "link_s"} <= set(stats)
+    after_first = stats["batches"] - 1
+    assert after_first >= 100
+    assert stats["upload_raw_batches"] - 1 >= 0.99 * after_first, stats["wire_batches"]
+    assert stats["link_bytes"] > 0 and stats["link_s"] > 0
+    assert got == packed == _album_bytes(x, upload_pack=False)

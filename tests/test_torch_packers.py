@@ -266,7 +266,8 @@ def test_packer_stats_and_frames(packer):
                           "captures", "capture_s", "captures_background",
                           "capture_background_s", "link_mbps", "max_inflight",
                           "staging_reused", "staging_allocated", "staging_waited",
-                          "upload_bytes", "upload_samples"}
+                          "upload_bytes", "upload_samples", "upload_raw_batches",
+                          "link_bytes", "link_s"}
     assert stats["wire_batches"] == {"None": 3} and stats["captures"] == 0
     assert np.array_equal(decode_stream(parse_stream(s.to_bytes())), x)
 
